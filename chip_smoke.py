@@ -1,0 +1,421 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Needs a CUDA card, ``nvcc`` and the repository beside this file; exits
+non-zero on any failure, and before printing any result when there is no
+card. Phases:
+
+1. the card's name and power limit, as ``nvidia-smi`` reports them;
+2. the kernels, built from ``snappy_tpu_torch/csrc``, each held against
+   its plain PyTorch version on the card at the main path's shapes
+   (equality: bytes, codes and CRCs are integers), and timed with CUDA
+   events beside its bound;
+3. the main path's two entry points: a 64 MiB + 5,000-byte frame stream
+   of the ``data/`` corpus, decoded by ``snappy_tpu_torch.decompress_frame``
+   on the card, and a raw stream the host flatten rejects, decoded by
+   ``snappy_tpu_torch.decompress``. The kernels' launch counts are set to
+   0 just before each and read just after it; each path must have run its
+   own kernels and no other. The frame path is then timed end to end, and
+   again with ``ops.api.spans`` on for the breakdown of that same run;
+   then a corrupted frame stream must raise what the host engine raises.
+
+It prints one ``{"kernels": [...]}`` line, then as its last line
+``{"ok": true, "device": {...}}``. Details go to
+``chiprun_out/chip_smoke.json``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+# H100 SXM integer rate outside the tensor cores: 64 INT32 lanes per SM per
+# clock (half the 128 float32 lanes behind its 67 TFLOP/s), 132 SMs, 1.98 GHz.
+PEAK_INT32_OPS_PER_S = 64 * 132 * 1.98e9
+CORPUS = [
+    "html", "urls.10K", "fireworks.jpeg", "paper-100k.pdf", "html_x_4",
+    "alice29.txt", "asyoulik.txt", "lcet10.txt", "plrabn12.txt",
+    "geo.protodata", "kppkn.gtb",
+]
+STREAM_BYTES = (64 << 20) + 5000
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def cuda_ms(fn, reps: int, warm: int = 2) -> float:
+    """Mean milliseconds per call over ``reps`` warm calls (CUDA events)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def bound_ms(nbytes: int, int_ops: int = 0) -> tuple[float, str]:
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = int_ops / PEAK_INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
+
+
+def corpus_stream(nbytes: int) -> bytes:
+    parts, total = [], 0
+    while total < nbytes:
+        for name in CORPUS:
+            with open(os.path.join(HERE, "data", name), "rb") as f:
+                blob = f.read()
+            parts.append(blob)
+            total += len(blob)
+    return b"".join(parts)[:nbytes]
+
+
+def compressed_chunks(frame: bytes):
+    """``(body without varint, declen, chunk offset)`` of every compressed
+    frame chunk."""
+    from snappy_tpu_torch.format.varint import read_varu64
+
+    out, pos = [], 0
+    while pos < len(frame):
+        ty = frame[pos]
+        ln = int.from_bytes(frame[pos + 1 : pos + 4], "little")
+        payload = frame[pos + 4 : pos + 4 + ln]
+        if ty == 0x00:
+            declen, h = read_varu64(payload[4:])
+            out.append((payload[4 + h :], declen, pos))
+        pos += 4 + ln
+    return out
+
+
+def flatten_rejected_stream() -> tuple[bytes, bytes]:
+    """A raw stream whose 1024-byte output tile at 64 KiB reads both the
+    first literal (via a 65535-offset copy) and a fresh literal ~66 KiB
+    later: a source spread wider than the flatten's widest window."""
+    from snappy_tpu_torch.format import reference as ref
+    from snappy_tpu_torch.format.varint import write_varu64
+
+    rng = np.random.default_rng(11)
+    lits = [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in (1024, 64512, 64)]
+
+    def literal(b: bytes) -> bytes:
+        n = len(b) - 1
+        return (bytes([60 << 2, n]) if n < 256 else bytes([61 << 2, n & 255, n >> 8])) + b
+
+    body = literal(lits[0]) + literal(lits[1]) + bytes([(63 << 2) | 2, 0xFF, 0xFF])
+    body += literal(lits[2])
+    raw = write_varu64(1024 + 64512 + 64 + 64) + body
+    return raw, ref.decompress(raw)
+
+
+def small_replay_rows():
+    """Corrupt vectors, RLE and overlap-straddling copies (bodies, declens)."""
+    from snappy_tpu_torch.format import reference as ref
+    from snappy_tpu_torch.format.varint import read_varu64
+
+    rows = [
+        (b"\x00a\x1d\x01", 5), (b"\x00a\x3f\x00", 17), (b"\x00a\x01\x00", 17),
+        (b"\x00a\x01\xFF", 17), (b"\x61", 3), (b"\xff\xff\xff\xff", 4),
+        (b"\xf0" + b"a" * 10, 4), (b"\x00a", 4),
+    ]
+    rng = np.random.default_rng(31)
+    for data in (b"a" * 5000, b"ab" * 3000, rng.integers(0, 4, 7000, dtype=np.uint8).tobytes()):
+        c = ref.compress(data)
+        _, h = read_varu64(c)
+        rows.append((c[h:], len(data)))
+    for off in (1, 3, 127, 128, 129, 255):
+        seed = rng.integers(0, 256, off, np.uint8).tobytes()
+        body = (bytes([(off - 1) << 2]) if off <= 60 else bytes([60 << 2, off - 1])) + seed
+        body += bytes([(63 << 2) | 2, off & 0xFF, off >> 8]) * 20
+        rows.append((body, off + 64 * 20))
+    return rows
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    if not os.path.isdir(os.path.join(HERE, "snappy_tpu_torch")):
+        print("chip_smoke: snappy_tpu_torch/ is not beside this script", file=sys.stderr)
+        return 1
+    import snappy_tpu_torch
+    from snappy_tpu_torch import native
+    from snappy_tpu_torch.format.varint import read_varu64, write_varu64
+    from snappy_tpu_torch.ops import _build, api, crc32c, decode_flat, packing, replay
+
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
+    print(card)
+    report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
+
+    # -- build ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    for src in _build.kernel_sources():
+        _build.kernel_lib(src.stem)
+    native.crc32c_masked(b"")
+    report["build_s"] = time.perf_counter() - t0
+    ptxas = []
+    for log in sorted(_build.BUILD_DIR.glob("*.log")):
+        ptxas += [f"{log.name}: {ln.strip()}" for ln in log.read_text().splitlines()
+                  if "registers" in ln or "spill" in ln]
+    report["ptxas"] = ptxas
+    print(f"build: {report['build_s']:.3f} s")
+    for ln in ptxas:
+        print(f"  {ln}")
+
+    # -- main-path data ----------------------------------------------------------
+    data = corpus_stream(STREAM_BYTES)
+    frame = native.frame_compress(data)
+    chunks = compressed_chunks(frame)
+    bodies = [c[0] for c in chunks]
+    groups = api.launch_groups(bodies, snappy_tpu_torch.get_config().decode_rows_per_launch)
+    report["stream"] = {
+        "bytes": len(data), "frame_bytes": len(frame), "compressed_chunks": len(chunks),
+        "groups": [[api._width_bucket(len(bodies[g[0]])), len(g)] for g in groups],
+    }
+
+    def group_inputs(g):
+        gb, gd = [bodies[i] for i in g], [chunks[i][1] for i in g]
+        srcs, lens = packing.batch_streams(gb, api._width_bucket(len(gb[0])))
+        d_pad = packing.pad_to_bucket(max(gd), 1024)
+        return srcs, lens, gd, d_pad
+
+    kernels = []
+
+    # -- K1 CRC32C at the main path's shape ----------------------------------------
+    rng = np.random.default_rng(7)
+    b, s = 512, 65536
+    rows = torch.from_numpy(rng.integers(0, 256, (b, s), dtype=np.uint8)).to(dev)
+    lens_np = rng.integers(0, s + 1, b).astype(np.int32)
+    lens_np[:2] = (0, s)
+    lens = torch.from_numpy(lens_np).to(dev)
+    got = crc32c.crc32c_masked_blocks(rows, lens)
+    want = crc32c.crc32c_plain(rows, lens, masked=True)
+    got_u = crc32c.crc32c_blocks(rows, lens)
+    want_u = crc32c.crc32c_plain(rows, lens, masked=False)
+    equal = torch.equal(got, want) and torch.equal(got_u, want_u)
+    nbytes = int(lens_np.sum()) + 4 * b + 8 * b + 4 * (256 + 1024)
+    bnd, by = bound_ms(nbytes, 3 * int(lens_np.sum()))
+    kernels.append({
+        "name": "crc32c", "route": "cuda", "source": "snappy_tpu_torch/csrc/crc32c.cu",
+        "replaces": "snappy_tpu/ops/pallas/crc32c.py:64 crc32c_blocks_pallas",
+        "shape": [b, s], "equal": equal,
+        "max_abs_err": max(max_abs_err(got, want), max_abs_err(got_u, want_u)),
+        "ms": cuda_ms(lambda: crc32c.crc32c_masked_blocks(rows, lens), 50),
+        "plain_ms": cuda_ms(lambda: crc32c.crc32c_plain(rows, lens, True), 3, warm=1),
+        "bound_ms": bnd, "bound_by": by, "library_ms": None,
+    })
+    del rows
+    check(equal, "K1 crc32c differs from its plain version")
+
+    # -- K2 flat gather, both layouts, on corpus chunks as the main path groups them --
+    big = max(groups, key=len)
+    tail = [g for g in groups if packing.pad_to_bucket(max(chunks[i][1] for i in g), 1024) % 16384]
+    check(bool(tail), "the stream has no tail chunk for layout 0")
+    for layout, g in ((1, big), (0, tail[0])):
+        srcs, glens, gd, d_pad = group_inputs(g)
+        check(layout == (1 if d_pad % 16384 == 0 else 0), f"group d_pad {d_pad}")
+        idx, tmeta, fallb, herrs, _ = native.flatten_idx_batch(
+            srcs, glens.astype(np.uint64), np.asarray(gd, np.uint64), d_pad, layout=layout
+        )
+        check(not fallb.any() and not herrs.any(), "flatten rejected a corpus chunk")
+        a = (
+            torch.from_numpy(srcs).to(dev), torch.from_numpy(idx.view(np.int16)).to(dev),
+            torch.from_numpy(tmeta).to(dev), torch.from_numpy(np.asarray(gd, np.int32)).to(dev),
+        )
+        got = decode_flat.decode_flat(*a, d_pad, layout)
+        want = decode_flat.decode_flat_plain(*a, d_pad, layout)
+        expect = np.zeros((len(g), d_pad), np.uint8)
+        plain = native.decompress_batch([write_varu64(gd[j]) + bodies[i] for j, i in enumerate(g)])
+        for j, p in enumerate(plain):
+            expect[j, : gd[j]] = np.frombuffer(p, np.uint8)
+        equal = torch.equal(got, want) and bool((got.cpu().numpy() == expect).all())
+        # The library yardstick: one torch.gather over absolute indices into
+        # rows with a zero column appended (index S for d >= declen).
+        d = np.arange(d_pad)
+        rel = idx[:, decode_flat.phys_index(d, layout)].astype(np.int64)
+        absidx = np.repeat(tmeta[:, :, 0].astype(np.int64), 1024, axis=1) * 128 + rel
+        absidx[d[None, :] >= np.asarray(gd)[:, None]] = srcs.shape[1]
+        padded = torch.cat([a[0], torch.zeros_like(a[0][:, :1])], dim=1)
+        absidx_t = torch.from_numpy(absidx).to(dev)
+        check(torch.equal(torch.gather(padded, 1, absidx_t), got), "torch.gather yardstick")
+        live_tiles = sum(-(-x // 1024) for x in gd)
+        nbytes = 2 * sum(gd) + int(glens.sum()) + 8 * live_tiles + 4 * len(g) + len(g) * d_pad
+        bnd, by = bound_ms(nbytes)
+        kernels.append({
+            "name": f"flat_gather[layout={layout}]", "route": "cuda",
+            "source": "snappy_tpu_torch/csrc/flat_gather.cu",
+            "replaces": ("snappy_tpu/ops/pallas/decode.py:1334 decode_flat_pallas_v2" if layout
+                         else "snappy_tpu/ops/pallas/decode.py:1395 decode_flat_pallas"),
+            "shape": [len(g), srcs.shape[1], d_pad], "equal": equal,
+            "max_abs_err": max_abs_err(got, want),
+            "ms": cuda_ms(lambda: decode_flat.decode_flat(*a, d_pad, layout), 50),
+            "plain_ms": cuda_ms(lambda: decode_flat.decode_flat_plain(*a, d_pad, layout), 5),
+            "bound_ms": bnd, "bound_by": by,
+            "library_ms": cuda_ms(lambda: torch.gather(padded, 1, absidx_t), 50),
+        })
+        check(equal, f"K2 flat gather layout {layout} differs from its plain version")
+
+    # -- K3 replay ----------------------------------------------------------------------
+    def replay_case(rows_bodies, declens, width=None):
+        srcs, rlens = packing.batch_streams(rows_bodies, width)
+        d_pad = packing.pad_to_bucket(max(max(declens), 1), 1024)
+        a = (
+            torch.from_numpy(srcs).to(dev), torch.from_numpy(rlens).to(dev),
+            torch.from_numpy(np.asarray(declens, np.int32)).to(dev),
+        )
+        got = replay.decode_replay(*a, d_pad)
+        want = replay.decode_replay_plain(*a, d_pad)
+        err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+        return a, d_pad, got, torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), err
+
+    small = small_replay_rows()
+    _, _, got_small, eq_small, err_small = replay_case([r[0] for r in small], [r[1] for r in small])
+    check(eq_small, "K3 replay differs from its plain version on the small vectors")
+    check(bool((got_small[1][:8] > 0).all()), "a corrupt vector decoded clean")
+    sample = big[:64]
+    corpus_a, corpus_dpad, got_c, eq_c, err_c = replay_case(
+        [bodies[i] for i in sample], [chunks[i][1] for i in sample])
+    check(eq_c and not bool(got_c[1].any()), "K3 replay differs on corpus chunks")
+    raw_fb, plain_fb = flatten_rejected_stream()
+    fb_declen, fb_h = read_varu64(raw_fb)
+    fb_body = raw_fb[fb_h:]
+    a, d_pad, got, eq_fb, err_fb = replay_case([fb_body], [fb_declen], api._width_bucket(len(fb_body)))
+    check(eq_fb and got[0][0, :fb_declen].cpu().numpy().tobytes() == plain_fb, "K3 on the rejected row")
+    nbytes = len(fb_body) + 8 + d_pad + 4
+    bnd, by = bound_ms(nbytes)
+    kernels.append({
+        "name": "replay", "route": "cuda", "source": "snappy_tpu_torch/csrc/replay.cu",
+        "replaces": "snappy_tpu/ops/pallas/decode.py:1523 decode_batch_pallas",
+        "shape": [1, a[0].shape[1], d_pad], "equal": eq_small and eq_c and eq_fb,
+        "max_abs_err": max(err_small, err_c, err_fb),
+        "ms": cuda_ms(lambda: replay.decode_replay(*a, d_pad), 20),
+        "plain_ms": cuda_ms(lambda: replay.decode_replay_plain(*a, d_pad), 3, warm=1),
+        "bound_ms": bnd, "bound_by": by, "library_ms": None,
+        "corpus_64_rows_ms": cuda_ms(lambda: replay.decode_replay(*corpus_a, corpus_dpad), 5),
+    })
+
+    # -- main path ---------------------------------------------------------------------
+    # Each entry point runs with every count set to 0 just before it and read
+    # just after: the frame stream takes K2 (both layouts) and K1, the
+    # flatten-rejected raw stream takes K3, and neither takes the other's.
+    counters = (crc32c, decode_flat, replay)
+    runs = {
+        "frame": (lambda: snappy_tpu_torch.decompress_frame(frame), data),
+        "raw": (lambda: snappy_tpu_torch.decompress(raw_fb), plain_fb),
+    }
+    by_path, t_cold = {}, {}
+    for path, (fn, want) in runs.items():
+        for m in counters:
+            m.launches = 0
+        decode_flat.layout_launches[:] = [0, 0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        t_cold[path] = time.perf_counter() - t0
+        by_path[path] = {"crc32c": crc32c.launches, "replay": replay.launches,
+                         "flat_gather[layout=0]": decode_flat.layout_launches[0],
+                         "flat_gather[layout=1]": decode_flat.layout_launches[1]}
+        check(out == want, f"{path} path output differs from the input")
+    fr, rw = by_path["frame"], by_path["raw"]
+    check(fr["crc32c"] >= 1, "K1 crc32c did not run on the frame path")
+    check(fr["flat_gather[layout=0]"] >= 1 and fr["flat_gather[layout=1]"] >= 1,
+          f"K2 layouts on the frame path: {fr}")
+    check(fr["replay"] == 0, f"K3 ran on the frame path: {fr}")
+    check(rw["replay"] >= 1, "K3 replay did not run on the raw path")
+    check(rw["crc32c"] == 0 and rw["flat_gather[layout=0]"] == 0
+          and rw["flat_gather[layout=1]"] == 0, f"the raw path ran K1 or K2: {rw}")
+    for k in kernels:
+        k["launches_by_path"] = {path: c[k["name"]] for path, c in by_path.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
+
+    # The frame path end to end, warm, with timing off; then again with
+    # ops.api.spans on, each run's breakdown against its own end-to-end time.
+    def timed_frame():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snappy_tpu_torch.decompress_frame(frame)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    e2e = [timed_frame() for _ in range(3)]
+    traced = []
+    for _ in range(3):
+        api.spans = {}
+        t = timed_frame()
+        parts, api.spans = api.spans, None
+        parts["other"] = t - sum(parts.values())
+        traced.append({"e2e_s": t, "parts_s": parts,
+                       "device_busy_share": parts["kernels"] / t})
+    best = min(traced, key=lambda r: r["e2e_s"])
+    report["main_path"] = {
+        "launches_by_path": by_path, "cold_s": t_cold,
+        "e2e_s": e2e, "e2e_GBps": [len(data) / t / 1e9 for t in e2e],
+        "traced": traced,
+        "device_GBps": len(data) / best["parts_s"]["kernels"] / 1e9,
+    }
+    print(f"main path: {len(data)} bytes, frame {len(frame)} bytes, "
+          f"{len(chunks)} compressed chunks in groups {report['stream']['groups']}")
+    print(f"  cold (s): {t_cold}")
+    print(f"  frame end to end, warm (s): {e2e}  GB/s: {report['main_path']['e2e_GBps']}")
+    for r in traced:
+        print(f"  traced run {r['e2e_s']} s: {r['parts_s']}, device busy "
+              f"{r['device_busy_share']}")
+    print(f"  launches by path: {by_path}")
+
+    # A corrupted compressed chunk raises what the host engine raises.
+    bad = bytearray(frame)
+    bad[chunks[0][2] + 4 + 4 + 40] ^= 0x5A  # inside the first compressed body
+    got_e = want_e = None
+    try:
+        snappy_tpu_torch.decompress_frame(bytes(bad))
+    except Exception as e:  # the comparison below is the check
+        got_e = e
+    try:
+        native.frame_decompress(bytes(bad))
+    except Exception as e:
+        want_e = e
+    check(want_e is not None and got_e is not None, "the corrupted stream decoded clean")
+    check(type(got_e) is type(want_e) and str(got_e) == str(want_e)
+          and getattr(got_e, "_values", lambda: None)() == getattr(want_e, "_values", lambda: None)(),
+          f"corrupt stream: port raised {got_e!r}, host engine {want_e!r}")
+    report["corrupt"] = repr(got_e)
+    print(f"corrupt stream raises {got_e!r}")
+
+    report["kernels"] = kernels
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    check(all(k["equal"] and k["max_abs_err"] == 0 for k in kernels), "a kernel disagrees")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,26 @@
+"""snappy_tpu_torch: the PyTorch/CUDA port of snappy_tpu's device decode.
+
+A second package beside ``snappy_tpu`` (the JAX/TPU reference, which it
+imports nothing of). Snappy frame streams and raw streams decode on an
+NVIDIA H100 through three hand-written CUDA kernels: a flat gather over
+host-flattened copy chains, a replay decoder for the rows the flatten
+cannot window, and a batched CRC32C. Output bytes and exceptions are
+identical to the reference codec's.
+
+    import snappy_tpu_torch
+    data = snappy_tpu_torch.decompress_frame(stream)            # on the card
+    data = snappy_tpu_torch.decompress(raw, device="cpu")        # plain versions
+"""
+
+from . import error
+from .config import Config, configure, get_config
+from .ops.api import decompress, decompress_frame
+
+__all__ = [
+    "decompress",
+    "decompress_frame",
+    "error",
+    "Config",
+    "configure",
+    "get_config",
+]

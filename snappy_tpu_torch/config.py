@@ -1,0 +1,136 @@
+"""Runtime configuration of the PyTorch/CUDA port.
+
+The JAX package's ``Config`` is frozen and its fields are named after the
+TPU (``pallas_max_dpad``, ``pallas_fastpath``...), so the port keeps its
+own. Library code reads :func:`get_config` at each decision point.
+Precedence, highest first:
+
+1. temporary overrides via :func:`configure` (a ContextVar overlay, safe
+   under threads and asyncio);
+2. the process-wide base set by :func:`set_config`;
+3. the dataclass defaults below.
+
+Example::
+
+    import snappy_tpu_torch
+    from snappy_tpu_torch.config import configure
+
+    with configure(device="cpu"):   # run the kernels' plain versions
+        snappy_tpu_torch.decompress(buf)
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+from dataclasses import dataclass, fields, replace
+
+__all__ = [
+    "Config",
+    "get_config",
+    "set_config",
+    "configure",
+    "config_from_reference",
+]
+
+
+@dataclass(frozen=True)
+class Config:
+    """Every runtime knob of the port, in one place.
+
+    - ``device``: where the entry points run, ``"cuda"`` (or
+      ``"cuda:N"``) or ``"cpu"``. On ``"cpu"`` each kernel's wrapper
+      takes its plain PyTorch version; that is what the CPU tests do.
+      With ``"cuda"`` and no card the entry points raise.
+    - ``decode_rows_per_launch``: rows per batched-decode launch group.
+    - ``max_device_stream``: single raw streams past this decode on host.
+    - ``max_device_output``: declared outputs past this decode on host.
+    - ``max_dpad``: padded output width per launch group; wider groups
+      decode on the host (multi-MB raw streams; frame chunks never get
+      there).
+    - ``replay_max_body``: carried over from the JAX package's config,
+      where rejected groups wider than it leave the replay kernel. It has
+      no effect here: the replay kernel takes every rejected group.
+    - ``threads``: host C++ codec thread cap; 0 = hardware concurrency.
+    - ``debug``: cross-check every device decode against the NumPy
+      oracle and fail loudly on divergence.
+    """
+
+    device: str = "cuda"
+    decode_rows_per_launch: int = 512
+    max_device_stream: int = 1 << 26
+    max_device_output: int = 1 << 27
+    max_dpad: int = 1 << 20
+    replay_max_body: int = 1 << 17
+    threads: int = 0
+    debug: bool = False
+
+
+#: JAX ``Config`` field -> port field, for the knobs both packages share.
+_REFERENCE_FIELDS = {
+    "decode_rows_per_launch": "decode_rows_per_launch",
+    "max_device_stream": "max_device_stream",
+    "max_device_output": "max_device_output",
+    "pallas_max_dpad": "max_dpad",
+    "replay_max_body": "replay_max_body",
+    "threads": "threads",
+    "debug": "debug",
+}
+
+
+def config_from_reference(fields: dict) -> Config:
+    """The port's ``Config`` under the JAX package's routing caps.
+
+    ``fields`` is ``dataclasses.asdict`` of a ``snappy_tpu.config.Config``
+    (a plain dict, so this module imports nothing of the JAX package).
+    Shared knobs carry over; TPU-only ones (Pallas route selectors, the
+    compress batching) have no counterpart and are ignored; ``device``
+    keeps its default.
+    """
+    return Config(
+        **{ours: fields[theirs] for theirs, ours in _REFERENCE_FIELDS.items()}
+    )
+
+
+_base_default = Config()
+_base_var: contextvars.ContextVar[Config | None] = contextvars.ContextVar(
+    "snappy_tpu_torch_config_base", default=None
+)
+
+
+def get_config() -> Config:
+    """The effective configuration."""
+    ctx = _base_var.get()
+    return ctx if ctx is not None else _base_default
+
+
+def set_config(cfg: Config | None = None, **overrides) -> Config:
+    """Set the process-wide base configuration.
+
+    Pass a full :class:`Config`, or field overrides applied to the
+    current base. Returns the new base.
+    """
+    global _base_default
+    if cfg is not None and overrides:
+        raise TypeError("pass a Config or field overrides, not both")
+    _base_default = cfg if cfg is not None else replace(_base_default, **overrides)
+    return _base_default
+
+
+@contextlib.contextmanager
+def configure(**overrides):
+    """Temporarily override configuration fields (context manager).
+
+    Re-entrant and safe under threads/async: overrides live in a
+    ContextVar, so concurrent callers see their own values and
+    out-of-order unwinds restore exactly the state each caller saw.
+    """
+    names = {f.name for f in fields(Config)}
+    unknown = set(overrides) - names
+    if unknown:
+        raise TypeError(f"unknown config fields: {sorted(unknown)}")
+    token = _base_var.set(replace(get_config(), **overrides))
+    try:
+        yield _base_var.get()
+    finally:
+        _base_var.reset(token)

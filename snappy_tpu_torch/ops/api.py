@@ -1,0 +1,425 @@
+"""Host-facing decode API over the CUDA kernels.
+
+The port of the JAX package's ``ops/api.py`` decode half. The host parses
+the tiny framing (varint preambles, frame chunk headers), groups rows by
+width, flattens copy chains with the native runtime, and moves fixed-shape
+batches to and from the device, where three kernels do the byte work:
+
+- K2 ``decode_flat`` emits every byte from its flattened source index;
+- K3 ``decode_replay`` decodes the groups the flatten cannot window;
+- K1 ``crc32c_masked_blocks`` checks every decoded frame chunk.
+
+Exact error parity: kernels reduce validity to a device code; on any
+flagged stream the host re-runs the NumPy reference codec, which raises
+the identical exception the sequential loop would have (same variant,
+same fields).
+
+Entry points run on ``Config.device`` (``"cuda"`` by default) unless the
+caller passes ``device``. With a CUDA device and no card they raise;
+nothing falls back to the CPU. On ``device="cpu"`` the kernels' plain
+PyTorch versions run instead, which is how the CPU tests hold the port
+against the JAX package.
+
+Setting :data:`spans` to ``{}`` times the parts of every decode that
+follows, for a breakdown of the end-to-end time taken from the same run.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+
+import numpy as np
+import torch
+
+from .. import error as err
+from .. import native
+from ..config import get_config
+from ..format import reference as ref
+from ..format.constants import (
+    CHUNK_TYPE_COMPRESSED,
+    CHUNK_TYPE_PADDING,
+    CHUNK_TYPE_STREAM,
+    CHUNK_TYPE_UNCOMPRESSED,
+    MAX_BLOCK_SIZE,
+    MAX_COMPRESS_BLOCK_SIZE,
+    MAX_INPUT_SIZE,
+    STREAM_BODY,
+)
+from ..format.varint import read_varu64, write_varu64
+from . import packing
+from .crc32c import crc32c_masked_blocks
+from .decode_flat import decode_flat
+from .replay import OK, decode_replay
+
+#: Seconds spent in each part of the decodes run while this is a dict (set
+#: it to ``{}`` to start, ``None`` to stop). Host parts are timed with
+#: ``time.perf_counter``: ``walk`` (frame chunk walk), ``pack`` (grouping
+#: and padding rows), ``flatten`` (native index flatten), ``h2d`` and
+#: ``d2h`` (copies), ``host_decode`` (oversized rows), ``unpack`` (rows
+#: to bytes), ``stored_crc`` (checksums of uncompressed chunks) and
+#: ``join``. ``kernels`` is device time between CUDA events around the
+#: launches, which are synchronised while timing is on so that no host
+#: part includes waiting for them.
+spans: dict[str, float] | None = None
+
+
+@contextlib.contextmanager
+def _span(name: str, dev: torch.device | None = None):
+    """Add the ``with`` body's time to ``spans[name]`` when timing is on;
+    with a CUDA ``dev``, the device time of what it launches."""
+    if spans is None:
+        yield
+        return
+    if dev is not None and dev.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        yield
+        stop.record()
+        stop.synchronize()
+        dt = start.elapsed_time(stop) / 1e3
+    else:
+        t0 = time.perf_counter()
+        yield
+        dt = time.perf_counter() - t0
+    spans[name] = spans.get(name, 0.0) + dt
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """The device an entry point runs on: ``device``, else ``Config.device``.
+
+    A CUDA device with no card raises; nothing runs quietly on the CPU.
+    """
+    dev = torch.device(device if device is not None else get_config().device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "snappy_tpu_torch: no CUDA device is available; pass device='cpu' "
+            "to run the kernels' plain versions on the CPU"
+        )
+    return dev
+
+
+def _check_header(data: bytes) -> tuple[int, int]:
+    if len(data) == 0:
+        raise err.Empty()
+    declen, hdr = read_varu64(data)
+    if hdr == 0:
+        raise err.Header()
+    if declen > MAX_INPUT_SIZE:
+        raise err.TooBig(given=declen, max=MAX_INPUT_SIZE)
+    return declen, hdr
+
+
+def decompress(data: bytes, device: str | torch.device | None = None) -> bytes:
+    """Decompress one raw Snappy stream on the device.
+
+    Bit-exact output and exact error parity with the reference decoder.
+    Streams past ``Config.max_device_stream``, ``max_device_output`` or
+    ``max_dpad`` decode on the host engine.
+    """
+    dev = resolve_device(device)
+    cfg = get_config()
+    declen, hdr = _check_header(data)
+    # Scratch-allocation guard: in any valid stream the densest op is
+    # copy2/copy4 (>= 3 stream bytes per <= 64 output bytes), so declen
+    # can't exceed ~22x the body. A crafted few-byte stream declaring a
+    # huge declen must not get to size device buffers; the sequential
+    # host engine raises the reference's exact error without that.
+    if declen > (64 * max(len(data) - hdr, 0)) // 3 + 64:
+        return native.decompress(data)
+    if len(data) > cfg.max_device_stream or declen > cfg.max_device_output:
+        return native.decompress(data)
+    # decompress_streams would route a row this wide to the host anyway.
+    if declen > cfg.max_dpad:
+        return native.decompress(data)
+    outs, errs, _ = decompress_streams([data[hdr:]], [declen], device=dev)
+    if int(errs[0]) != OK:
+        ref.decompress(data)  # raises the exact sequential error
+        raise err.HeaderMismatch(expected_len=declen, got_len=-1)  # unreachable
+    return outs[0]
+
+
+def _width_bucket(n: int) -> int:
+    """Static row width for a body of ``n`` bytes (bounded bucket set)."""
+    b = packing.pad_to_bucket(max(n, 1), 1024)
+    if 65536 < n <= 81920:
+        # Frame-chunk bodies top out at max_compress_len(65536) = 76490;
+        # an 81920 row beats the 128 KiB pow2 bucket by 36%.
+        b = 81920
+    return b
+
+
+def launch_groups(bodies: list[bytes], rows_per_launch: int) -> list[list[int]]:
+    """Row indices per launch: rows sorted by width bucket, each group
+    one bucket and at most ``rows_per_launch`` rows."""
+    order = sorted(range(len(bodies)), key=lambda i: _width_bucket(len(bodies[i])))
+    groups: list[list[int]] = []
+    for i in order:
+        g = groups[-1] if groups else None
+        if (
+            g is None
+            or len(g) == rows_per_launch
+            or _width_bucket(len(bodies[g[0]])) != _width_bucket(len(bodies[i]))
+        ):
+            groups.append([])
+        groups[-1].append(i)
+    return groups
+
+
+def decode_group(srcs: np.ndarray, lens: np.ndarray, declens: list[int], d_pad: int,
+                 dev: torch.device):
+    """Decode one launch group of zero-padded bodies on ``dev``.
+
+    The host flatten resolves every copy chain and K2 gathers the bytes
+    (``layout=1`` when ``d_pad`` is whole 16 KiB groups, else 0); if the
+    flatten cannot window some tile of the group, the whole group takes
+    K3 instead. Returns ``(dst (B, d_pad) uint8 on dev, errs (B,) int32
+    numpy, declens (B,) int32 on dev)``.
+    """
+    lens64 = np.asarray(lens, np.uint64)
+    decl64 = np.asarray(declens, np.uint64)
+    layout = 1 if d_pad % 16384 == 0 else 0
+    with _span("flatten"):
+        idx, tmeta, fallb, herrs, _ = native.flatten_idx_batch(
+            srcs, lens64, decl64, d_pad, layout=layout
+        )
+    with _span("h2d"):
+        srcs_t = torch.from_numpy(srcs).to(dev)
+        declens_t = torch.from_numpy(np.asarray(declens, np.int32)).to(dev)
+    if not fallb.any():
+        with _span("h2d"):
+            idx_t = torch.from_numpy(idx.view(np.int16)).to(dev)
+            tmeta_t = torch.from_numpy(tmeta).to(dev)
+        with _span("kernels", dev):
+            dst = decode_flat(srcs_t, idx_t, tmeta_t, declens_t, d_pad, layout)
+        return dst, herrs, declens_t
+    with _span("h2d"):
+        lens_t = torch.from_numpy(np.asarray(lens, np.int32)).to(dev)
+    with _span("kernels", dev):
+        dst, gerrs = decode_replay(srcs_t, lens_t, declens_t, d_pad)
+    with _span("d2h"):
+        return dst, gerrs.cpu().numpy(), declens_t
+
+
+def decompress_streams(
+    bodies: list[bytes],
+    declens: list[int],
+    with_crc: bool = False,
+    device: str | torch.device | None = None,
+) -> tuple[list[bytes], np.ndarray, np.ndarray | None]:
+    """Batched device decode of raw op streams (no varint headers).
+
+    Returns ``(outputs, err_codes, crcs-or-None)`` in input order. Rows
+    are grouped by width bucket so small chunks don't pay the widest
+    row's traffic, and large groups run as several launches of at most
+    ``Config.decode_rows_per_launch`` rows. ``with_crc=True`` also
+    returns each output's masked CRC32C, computed on the device before
+    the bytes leave it.
+    """
+    dev = resolve_device(device)
+    if not bodies:
+        return [], np.zeros(0, np.int32), (np.zeros(0, np.uint32) if with_crc else None)
+
+    cfg = get_config()
+    outs: list[bytes] = [b""] * len(bodies)
+    errs = np.zeros(len(bodies), np.int32)
+    crcs = np.zeros(len(bodies), np.uint32) if with_crc else None
+
+    with _span("pack"):
+        groups = launch_groups(bodies, cfg.decode_rows_per_launch)
+    for idxs in groups:
+        group = [bodies[i] for i in idxs]
+        gdecl = [declens[i] for i in idxs]
+        d_pad = packing.pad_to_bucket(max(max(gdecl), 1), 1024)
+        with _span("pack"):
+            srcs, lens = packing.batch_streams(group, _width_bucket(len(group[0])))
+        if d_pad > cfg.max_dpad:
+            # Oversized rows (multi-MB raw streams; frame chunks never get
+            # here): the multithreaded host codec. Error codes come from
+            # the host op scan, a lockstep mirror of device validation.
+            with _span("host_decode"):
+                _, _, gerrs, _ = native.scan_records_batch(
+                    srcs, np.asarray(lens, np.uint64), np.asarray(gdecl, np.uint64), 512
+                )
+                ok_rows = [j for j in range(len(group)) if int(gerrs[j]) == 0]
+                decoded = native.decompress_batch(
+                    [write_varu64(gdecl[j]) + group[j] for j in ok_rows]
+                )
+                for k, j in enumerate(ok_rows):
+                    outs[idxs[j]] = decoded[k]
+                    if with_crc:
+                        crcs[idxs[j]] = native.crc32c_masked(decoded[k])
+        else:
+            dst, gerrs, declens_t = decode_group(srcs, lens, gdecl, d_pad, dev)
+            gcrc = None
+            if with_crc:
+                with _span("kernels", dev):
+                    gcrc = crc32c_masked_blocks(dst, declens_t)
+            with _span("d2h"):
+                gcrc = gcrc.cpu().numpy() if with_crc else None
+                dst = dst.cpu().numpy()
+            with _span("unpack"):
+                for j, i in enumerate(idxs):
+                    outs[i] = dst[j, : gdecl[j]].tobytes()
+                    if gcrc is not None:
+                        crcs[i] = gcrc[j]
+        errs[idxs] = gerrs
+        if cfg.debug:
+            _debug_check_streams(group, gdecl, [outs[i] for i in idxs], gerrs)
+    return outs, errs, crcs
+
+
+def _debug_check_streams(bodies, declens, outs, errcodes) -> None:
+    """Sanitizer mode (``Config.debug``): cross-check every device decode
+    against the NumPy oracle (output bytes and error/no-error agreement)
+    and fail loudly on divergence."""
+    for body, declen, out, code in zip(bodies, declens, outs, errcodes):
+        try:
+            want = ref.decompress(write_varu64(declen) + body)
+        except err.SnappyError:
+            if int(code) == OK:
+                raise AssertionError(
+                    "snappy_tpu_torch debug: device decode accepted a stream "
+                    "the oracle rejects"
+                )
+            continue
+        if int(code) != OK:
+            raise AssertionError(
+                "snappy_tpu_torch debug: device decode flagged a stream the "
+                f"oracle accepts (code {int(code)})"
+            )
+        if out != want:
+            raise AssertionError(
+                "snappy_tpu_torch debug: device decode output mismatch vs oracle"
+            )
+
+
+def decompress_frame(data: bytes, device: str | torch.device | None = None) -> bytes:
+    """Decode a whole frame-format buffer with batched device kernels.
+
+    The host walks the chunk structure (a few bytes per 64 KiB chunk);
+    all compressed chunk payloads decode in one device batch with their
+    masked CRC32C. Error semantics match the streaming reader (reference
+    ``src/read.rs:105-238``) exactly: the walk stops at the first
+    structural error, data chunks before it are checked in stream order
+    (decode errors precede the chunk's checksum check), and the earliest
+    failure wins.
+    """
+    dev = resolve_device(device)
+    pos = 0
+    n = len(data)
+    read_ident = False
+    # (kind 0=compressed/1=uncompressed, body, expected_crc, declen,
+    #  known_error or None) in stream order.
+    datachunks = []
+    pending: Exception | None = None  # first structural error, if any
+
+    def _need(k: int) -> bytes:
+        nonlocal pos
+        if pos + k > n:
+            raise EOFError("snappy: unexpected EOF while reading frame chunk")
+        out = data[pos : pos + k]
+        pos += k
+        return out
+
+    with _span("walk"):
+        try:
+            while pos < n:
+                header = _need(4)
+                ty = header[0]
+                if not read_ident:
+                    if ty != CHUNK_TYPE_STREAM:
+                        raise err.StreamHeader(byte=ty)
+                    read_ident = True
+                length = header[1] | (header[2] << 8) | (header[3] << 16)
+                if length > MAX_COMPRESS_BLOCK_SIZE:
+                    raise err.UnsupportedChunkLength(len=length, header=False)
+                if 0x02 <= ty <= 0x7F:
+                    raise err.UnsupportedChunkType(byte=ty)
+                if 0x80 <= ty <= 0xFD or ty == CHUNK_TYPE_PADDING:
+                    _need(length)
+                    continue
+                if ty == CHUNK_TYPE_STREAM:
+                    if length != len(STREAM_BODY):
+                        raise err.UnsupportedChunkLength(len=length, header=True)
+                    body = _need(length)
+                    if body != STREAM_BODY:
+                        raise err.StreamHeaderMismatch(bytes=body)
+                    continue
+                if length < 4:
+                    raise err.UnsupportedChunkLength(len=length, header=False)
+                payload = _need(length)
+                crc = int.from_bytes(payload[:4], "little")
+                body = payload[4:]
+                if ty == CHUNK_TYPE_UNCOMPRESSED:
+                    if len(body) > MAX_BLOCK_SIZE:
+                        raise err.UnsupportedChunkLength(len=len(body), header=False)
+                    datachunks.append((1, body, crc, len(body), None))
+                else:
+                    assert ty == CHUNK_TYPE_COMPRESSED
+                    # Mirror the sequential reader: decompress_len, the
+                    # MAX_BLOCK_SIZE bound, then decode (src/read.rs:200-235).
+                    known = None
+                    declen = 0
+                    if len(body) == 0:
+                        known = err.Empty()
+                    else:
+                        try:
+                            declen, hdr = _check_header(body)
+                            body = body[hdr:]
+                        except err.SnappyError as e:
+                            known = e
+                        else:
+                            if declen > MAX_BLOCK_SIZE:
+                                raise err.UnsupportedChunkLength(
+                                    len=declen, header=False
+                                )
+                    datachunks.append((0, body, crc, declen, known))
+                    if known is not None:
+                        break  # sequential reader stops at this chunk
+        except (err.SnappyError, EOFError) as e:
+            pending = e
+
+    comp_idx = [i for i, c in enumerate(datachunks) if c[0] == 0 and c[4] is None]
+    # Uncompressed chunks pass through; known-error chunks contribute no
+    # bytes (their error is raised before their checksum would be read).
+    outputs = [c[1] if c[0] == 1 else b"" for c in datachunks]
+    errcodes = np.zeros(len(comp_idx), np.int32)
+    got_crc = np.zeros(len(datachunks), np.uint32)
+    if comp_idx:
+        outs, errcodes, comp_crc = decompress_streams(
+            [datachunks[i][1] for i in comp_idx],
+            [datachunks[i][3] for i in comp_idx],
+            with_crc=True,
+            device=dev,
+        )
+        for j, i in enumerate(comp_idx):
+            outputs[i] = outs[j]
+            got_crc[i] = comp_crc[j]
+
+    if datachunks:
+        # Uncompressed chunks: checksum their host-resident payloads with
+        # the host engine's hardware CRC.
+        with _span("stored_crc"):
+            for i, c in enumerate(datachunks):
+                if c[0] == 1:
+                    got_crc[i] = native.crc32c_masked(c[1])
+        exp_crc = np.array([c[2] for c in datachunks], np.uint32)
+        bad_dec = {i: int(e) for i, e in zip(comp_idx, errcodes) if int(e) != OK}
+        bad_crc = set(np.nonzero(got_crc != exp_crc)[0].tolist())
+        for i, chunk in enumerate(datachunks):
+            if chunk[4] is not None:
+                raise chunk[4]
+            if i in bad_dec:
+                ref.decompress(write_varu64(chunk[3]) + chunk[1])
+                raise err.HeaderMismatch(expected_len=chunk[3], got_len=-1)
+            if i in bad_crc:
+                raise err.Checksum(expected=int(exp_crc[i]), got=int(got_crc[i]))
+
+    if pending is not None:
+        raise pending
+    with _span("join"):
+        return b"".join(outputs)

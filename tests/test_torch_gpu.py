@@ -1,0 +1,136 @@
+"""Each CUDA kernel against its plain PyTorch version, on the card.
+
+Run on a machine with an NVIDIA card and ``nvcc``::
+
+    python -m pytest -m gpu tests/test_torch_gpu.py
+
+Without a card every test skips (the kernels have no CPU mode; their
+plain versions are held against the JAX package by the other
+``test_torch_*`` files). Bytes, codes and CRCs are integers: equality.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import load_corpus
+from snappy_tpu_torch import native
+from snappy_tpu_torch.format import reference as ref
+from snappy_tpu_torch.format.varint import read_varu64, write_varu64
+from snappy_tpu_torch.ops import api, crc32c, decode_flat, packing, replay
+from torch_vectors import CORRUPT, fallback_row, overlap_rows
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _bodies(datas):
+    out = []
+    for d in datas:
+        c = ref.compress(d)
+        out.append(c[read_varu64(c)[1]:])
+    return out
+
+
+CHUNKS = [
+    load_corpus("html")[:65536],
+    load_corpus("plrabn12.txt")[:65536],
+    load_corpus("fireworks.jpeg")[:40000],
+    b"ab" * 20000,
+    bytes(65536),
+    load_corpus("kppkn.gtb")[:61234],
+]
+
+
+def test_crc32c_kernel_matches_plain(dev):
+    rng = np.random.default_rng(7)
+    b, s = 64, 65536
+    rows = torch.from_numpy(rng.integers(0, 256, (b, s), dtype=np.uint8)).to(dev)
+    lens_np = rng.integers(0, s + 1, b).astype(np.int32)
+    lens_np[:3] = (0, s, 1)
+    lens = torch.from_numpy(lens_np).to(dev)
+    before = crc32c.launches
+    for masked, fn in ((True, crc32c.crc32c_masked_blocks), (False, crc32c.crc32c_blocks)):
+        got = fn(rows, lens)
+        assert got.device.type == "cuda"
+        assert torch.equal(got, crc32c.crc32c_plain(rows, lens, masked))
+    assert crc32c.launches == before + 2
+    # Odd widths and unaligned rows take the byte loop.
+    odd = rows[:, 1:4001].contiguous()
+    got = crc32c.crc32c_blocks(odd, lens.clamp(max=4000))
+    assert torch.equal(got, crc32c.crc32c_plain(odd, lens.clamp(max=4000), False))
+
+
+@pytest.mark.parametrize("layout", [0, 1])
+def test_flat_gather_kernel_matches_plain(dev, layout):
+    datas = CHUNKS if layout else [d[:7000] for d in CHUNKS]
+    bodies = _bodies(datas)
+    srcs, lens = packing.batch_streams(bodies)
+    declens = np.asarray([len(d) for d in datas], np.int32)
+    d_pad = 65536 if layout else 7168
+    idx, tmeta, fallb, errs, _ = native.flatten_idx_batch(
+        srcs, lens.astype(np.uint64), declens.astype(np.uint64), d_pad, layout=layout
+    )
+    assert not fallb.any() and not errs.any()
+    a = [torch.from_numpy(x).to(dev) for x in (srcs, idx.view(np.int16), tmeta, declens)]
+    before = decode_flat.layout_launches[layout]
+    got = decode_flat.decode_flat(*a, d_pad, layout)
+    torch.cuda.synchronize()
+    assert decode_flat.layout_launches[layout] == before + 1
+    assert torch.equal(got, decode_flat.decode_flat_plain(*a, d_pad, layout))
+    host = got.cpu().numpy()
+    for i, d in enumerate(datas):
+        assert host[i, : len(d)].tobytes() == d and not host[i, len(d):].any()
+
+
+def _replay_rows():
+    return (
+        CORRUPT
+        + overlap_rows((1, 3, 31, 32, 33, 127, 128, 129, 255), copies=20)
+        + list(zip(_bodies(CHUNKS), [len(d) for d in CHUNKS]))
+    )
+
+
+def test_replay_kernel_matches_plain(dev):
+    rows = _replay_rows()
+    declens = np.asarray([r[1] for r in rows], np.int32)
+    d_pad = packing.pad_to_bucket(int(declens.max()), 1024)
+    # Rows of 128 KiB are staged in shared memory; rows of 256 KiB exceed
+    # one block's 227 KB and are read from device memory.
+    for width in (1 << 17, 1 << 18):
+        srcs, lens = packing.batch_streams([r[0] for r in rows], width)
+        a = [torch.from_numpy(x).to(dev) for x in (srcs, lens, declens)]
+        got = replay.decode_replay(*a, d_pad)
+        want = replay.decode_replay_plain(*a, d_pad)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    errs = got[1].cpu().numpy()
+    n = len(CORRUPT)
+    assert (errs[:n] > 0).all() and not errs[n:].any()
+
+
+def test_entry_points_on_the_card(dev):
+    data = (load_corpus("alice29.txt") + load_corpus("fireworks.jpeg")) * 2 + b"tail" * 1000
+    stream = native.frame_compress(data)
+    for m in (crc32c, decode_flat, replay):
+        m.launches = 0
+    assert api.decompress_frame(stream) == data
+    assert crc32c.launches >= 1 and decode_flat.launches >= 1 and replay.launches == 0
+    body, declen = fallback_row()
+    raw = write_varu64(declen) + body
+    for m in (crc32c, decode_flat, replay):
+        m.launches = 0
+    assert api.decompress(raw) == ref.decompress(raw)
+    assert replay.launches == 1 and crc32c.launches == 0 and decode_flat.launches == 0
+    bad = bytearray(stream)
+    bad[len(bad) // 2] ^= 0x5A
+    with pytest.raises(Exception) as got:
+        api.decompress_frame(bytes(bad))
+    with pytest.raises(Exception) as want:
+        native.frame_decompress(bytes(bad))
+    assert type(got.value) is type(want.value) and str(got.value) == str(want.value)

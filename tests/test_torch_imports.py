@@ -1,0 +1,95 @@
+"""The PyTorch port stands alone: importing it loads neither JAX nor the
+JAX package, and its entry points never run quietly on the CPU."""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PORT_MODULES = [
+    "snappy_tpu_torch",
+    "snappy_tpu_torch.config",
+    "snappy_tpu_torch.error",
+    "snappy_tpu_torch.format.reference",
+    "snappy_tpu_torch.native",
+    "snappy_tpu_torch.ops._build",
+    "snappy_tpu_torch.ops.api",
+    "snappy_tpu_torch.ops.crc32c",
+    "snappy_tpu_torch.ops.decode_flat",
+    "snappy_tpu_torch.ops.packing",
+    "snappy_tpu_torch.ops.replay",
+]
+
+
+def _foreign(name: str) -> bool:
+    return name.startswith("jax") or name == "snappy_tpu" or name.startswith("snappy_tpu.")
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        check=True, capture_output=True, text=True,
+    ).stdout
+    loaded = json.loads(out.strip().splitlines()[-1])
+    assert set(PORT_MODULES) <= set(loaded)
+    assert [m for m in loaded if _foreign(m)] == []
+
+
+@pytest.mark.parametrize("entry", ["decompress", "decompress_frame"])
+def test_default_device_without_a_card_raises(entry, monkeypatch):
+    import snappy_tpu_torch
+    from snappy_tpu_torch.format import reference as ref
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert snappy_tpu_torch.get_config().device == "cuda"
+    raw = ref.compress(b"hello hello hello hello")
+    stream = b"\xff\x06\x00\x00sNaPpY"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(snappy_tpu_torch, entry)(raw if entry == "decompress" else stream)
+    # The explicit CPU request runs the kernels' plain versions.
+    assert getattr(snappy_tpu_torch, entry)(
+        raw if entry == "decompress" else stream, device="cpu"
+    ) == (b"hello hello hello hello" if entry == "decompress" else b"")
+
+
+def test_configured_cpu_device_is_honoured(monkeypatch):
+    import snappy_tpu_torch
+    from snappy_tpu_torch.format import reference as ref
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    raw = ref.compress(b"abcabcabcabcabc")
+    with snappy_tpu_torch.configure(device="cpu"):
+        assert snappy_tpu_torch.decompress(raw) == b"abcabcabcabcabc"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        snappy_tpu_torch.decompress(raw)
+
+
+def test_cuda_tensor_without_a_card_does_not_fall_back():
+    """A wrapper chooses its plain version only for CPU tensors; anything
+    else is refused rather than decoded on the CPU."""
+    from snappy_tpu_torch.ops import crc32c
+
+    rows = torch.zeros((1, 16), dtype=torch.uint8, device="meta")
+    lens = torch.zeros(1, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        crc32c.crc32c_masked_blocks(rows, lens)
+
+
+def test_public_surface():
+    import snappy_tpu_torch
+
+    assert set(snappy_tpu_torch.__all__) == {
+        "decompress", "decompress_frame", "error", "Config", "configure", "get_config",
+    }
+    assert snappy_tpu_torch.Config().device == "cuda"

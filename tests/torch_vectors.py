@@ -1,0 +1,61 @@
+"""Raw-stream vectors shared by the ``test_torch_*`` files.
+
+Plain bytes built with numpy only, so that the card-only tests can use
+them on a machine without JAX.
+"""
+
+import numpy as np
+
+# (body without varint, declen): the reference's corrupt vectors, then two
+# rows that fail after a valid literal (their prefix must survive).
+CORRUPT = [
+    (b"\x00a\x1d\x01", 5),  # CopyWrite
+    (b"\x00a\x3f\x00", 17),  # CopyRead
+    (b"\x00a\x01\x00", 17),  # offset zero
+    (b"\x00a\x01\xFF", 17),  # offset too big
+    (b"\x61", 3),  # literal overrun
+    (b"\xff\xff\xff\xff", 4),  # copy4 truncated
+    (b"\xf0" + b"a" * 10, 4),  # long literal, declen short
+    (b"\x00a", 4),  # ends early: header mismatch
+    (b"\x0cabcd\x01\x04", 7),  # a valid literal, then a copy past declen
+    (b"\x0cabcd\x01\x00", 20),  # a valid literal, then offset 0
+]
+
+
+def literal(b: bytes) -> bytes:
+    """A literal op of 1..65536 bytes."""
+    n = len(b) - 1
+    if n < 60:
+        return bytes([n << 2]) + b
+    if n < 256:
+        return bytes([60 << 2, n]) + b
+    return bytes([61 << 2, n & 255, n >> 8]) + b
+
+
+def copy2(offset: int, length: int) -> bytes:
+    assert 1 <= length <= 64
+    return bytes([((length - 1) << 2) | 2, offset & 0xFF, offset >> 8])
+
+
+def fallback_row() -> tuple[bytes, int]:
+    """A raw body the host flatten rejects: its 1024-byte output tile at
+    64 KiB reads both the first literal (a 65535-offset copy) and a
+    literal ~66 KiB later, a source spread wider than the widest window.
+    Returns ``(body, declen)``."""
+    rng = np.random.default_rng(11)
+    lits = [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in (1024, 64512, 64)]
+    body = literal(lits[0]) + literal(lits[1]) + copy2(65535, 64) + literal(lits[2])
+    return body, 1024 + 64512 + 64 + 64
+
+
+def overlap_rows(offsets=(1, 3, 31, 32, 33, 127, 128, 129), copies=5):
+    """Rows of one literal of ``off`` bytes, then ``copies`` 64-byte
+    copies and one 7-byte copy at that offset (overlapping whenever
+    ``off < 64``). Returns ``[(body, declen)]``."""
+    rng = np.random.default_rng(31)
+    rows = []
+    for off in offsets:
+        body = literal(rng.integers(0, 256, off, np.uint8).tobytes())
+        body += copy2(off, 64) * copies + copy2(off, 7)
+        rows.append((body, off + 64 * copies + 7))
+    return rows
