@@ -11,14 +11,20 @@ card. Phases:
    its plain PyTorch version on the card at the main path's shapes
    (equality: bytes, codes and CRCs are integers), and timed with CUDA
    events beside its bound;
-3. the main path's two entry points: a 64 MiB + 5,000-byte frame stream
+3. the main paths' three entry points: a 64 MiB + 5,000-byte frame stream
    of the ``data/`` corpus, decoded by ``snappy_tpu_torch.decompress_frame``
-   on the card, and a raw stream the host flatten rejects, decoded by
-   ``snappy_tpu_torch.decompress``. The kernels' launch counts are set to
-   0 just before each and read just after it; each path must have run its
-   own kernels and no other. The frame path is then timed end to end, and
+   on the card; a raw stream the host flatten rejects, decoded by
+   ``snappy_tpu_torch.decompress``; and the same 64 MiB + 5,000 bytes
+   compressed by ``snappy_tpu_torch.compress(profile="fast")`` (1,025
+   blocks in one launch group of 2,048 rows), which must decode back
+   exactly and whose first 64 blocks must equal the port's CPU run of
+   them byte for byte. The kernels' launch counts are set to 0 just before each and
+   read just after it; each path must have run its own kernels and no
+   other. The frame and compress paths are then timed end to end, and
    again with ``ops.api.spans`` on for the breakdown of that same run;
-   then a corrupted frame stream must raise what the host engine raises.
+   every corpus file compressed alone must be no larger than the host
+   codec's stream; a corrupted frame stream must raise what the host
+   engine raises.
 
 It prints one ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Details go to
@@ -41,6 +47,10 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # H100 SXM integer rate outside the tensor cores: 64 INT32 lanes per SM per
 # clock (half the 128 float32 lanes behind its 67 TFLOP/s), 132 SMs, 1.98 GHz.
 PEAK_INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# Integer operations in one step of a segment walk, counted in the loop body
+# of csrc/parse.cu: the jump-word read, two four-byte reads, the compare,
+# the record store and the state updates.
+PARSE_OPS_PER_STEP = 50
 CORPUS = [
     "html", "urls.10K", "fireworks.jpeg", "paper-100k.pdf", "html_x_4",
     "alice29.txt", "asyoulik.txt", "lcet10.txt", "plrabn12.txt",
@@ -160,7 +170,9 @@ def main() -> int:
     import snappy_tpu_torch
     from snappy_tpu_torch import native
     from snappy_tpu_torch.format.varint import read_varu64, write_varu64
-    from snappy_tpu_torch.ops import _build, api, crc32c, decode_flat, packing, replay
+    from snappy_tpu_torch.ops import (
+        _build, api, crc32c, decode_flat, emit, encode_flat, packing, parse, replay,
+    )
 
     dev = torch.device("cuda")
     card = subprocess.run(
@@ -317,74 +329,231 @@ def main() -> int:
         "corpus_64_rows_ms": cuda_ms(lambda: replay.decode_replay(*corpus_a, corpus_dpad), 5),
     })
 
-    # -- main path ---------------------------------------------------------------------
+    # -- compress: K4, K5 and K6 on the compress path's own launch group ------------
+    # The stream's 1,025 blocks padded to 2,048 rows, as compress() batches
+    # them; the inputs of each kernel are made by the path's own stages.
+    cblocks, clens = packing.blocks_of(data)
+    rows = packing.pad_to_bucket(len(clens), 1)
+    pad = rows - len(clens)
+    cb = torch.from_numpy(np.concatenate([cblocks, np.zeros((pad, cblocks.shape[1]), np.uint8)])).to(dev)
+    cl = torch.from_numpy(np.concatenate([clens, np.zeros(pad, np.int32)])).to(dev)
+    live_blocks = int((clens > 0).sum())
+    jw, _ = encode_flat.prepass(cb, cl)
+    rec = parse.parse_blocks(cl, jw, cb)
+    *want4, lane_steps = parse.parse_lockstep(cl, jw, cb)
+    eq4 = all(torch.equal(g, w) for g, w in zip(rec, want4))
+    nbytes = (live_blocks * (4 * 128 * 512 + 65536)
+              + rows * (2 * 4 * 128 * parse.MAX_REC + 4 * 128 * 8 + 4))
+    bnd, by = bound_ms(nbytes, PARSE_OPS_PER_STEP * lane_steps)
+    kernels.append({
+        "name": "parse", "route": "cuda", "source": "snappy_tpu_torch/csrc/parse.cu",
+        "replaces": "snappy_tpu/ops/pallas/encode_flat.py:195 parse_blocks_pallas",
+        "shape": [rows, 65536], "live_blocks": live_blocks, "lane_steps": lane_steps,
+        "equal": eq4, "max_abs_err": max(max_abs_err(g, w) for g, w in zip(rec, want4)),
+        "ms": cuda_ms(lambda: parse.parse_blocks(cl, jw, cb), 10),
+        "plain_ms": cuda_ms(lambda: parse.parse_blocks_plain(cl, jw, cb), 1, warm=0),
+        "bound_ms": bnd, "bound_by": by, "library_ms": None,
+    })
+    check(eq4, "K4 parse differs from its plain version")
+    del want4
+
+    lo_row, base, rows_g, out_len, bp_rows, dlt_rows, src, _ = encode_flat._fused_plan(cb, cl, *rec)
+    plan = (lo_row, base, rows_g, out_len, bp_rows, dlt_rows)
+    out5 = emit.fused_emit(*plan, src)
+    idx6 = emit.shift_idx(*plan)
+    out6 = emit.emit_bytes(src, idx6, out_len)
+    idx_plain = emit.shift_idx_plain(*plan)
+    want5 = emit.emit_bytes_plain(src, idx_plain, out_len)  # = fused_emit_plain
+    want6 = emit.emit_bytes_plain(src, idx6, out_len)
+    ref_out, ref_len = encode_flat.records_to_bytes(cb[:64], cl[:64], *(r[:64] for r in rec))
+    check(torch.equal(out5[:64, : encode_flat.OUT_W], ref_out) and torch.equal(out_len[:64], ref_len),
+          "K5 differs from the reference emission on the first 64 rows")
+    # Work the data needs: one source byte per output byte below out_len,
+    # every output byte written, and every plan row that some live group's
+    # window covers, once: neighbouring groups share a row where a window
+    # ends mid-row, and memory moves that row once. Operations: a binary
+    # search of its window per output byte and a scan step per window entry,
+    # in every group.
+    gs = torch.arange(emit.N_GROUPS, device=dev)[None, :] * emit.GROUP
+    live_g = gs < out_len[:, None]
+    rows_w = torch.where(live_g, rows_g.clamp(0, emit.BP_WIN_ROWS), 0)
+    win = (rows_w * emit.LANES).to(torch.int64)
+    live_d = (out_len[:, None] - gs).clamp(0, emit.GROUP).to(torch.int64)
+    search = (live_d * (6 + 4 * torch.ceil(torch.log2(win.double() + 1)).long())).sum()
+    ops5 = int(search + 4 * win.sum())
+    n_bp_rows = bp_rows.shape[1]
+    w_lo = lo_row.clamp(0, n_bp_rows).to(torch.int64)
+    w_hi = torch.maximum((lo_row + rows_w).clamp(0, n_bp_rows).to(torch.int64), w_lo)
+    cover = torch.zeros((rows, n_bp_rows + 1), dtype=torch.int32, device=dev)
+    cover.scatter_add_(1, w_lo, live_g.to(torch.int32))
+    cover.scatter_add_(1, w_hi, -live_g.to(torch.int32))
+    covered_rows = int((cover.cumsum(1)[:, :n_bp_rows] > 0).sum())
+    win_bytes = 8 * emit.LANES * covered_rows + 12 * int(live_g.sum())
+    report["emit_window_rows"] = {"covered": covered_rows, "per_group_sum": int(rows_w.sum())}
+    sum_len = int(out_len.to(torch.int64).sum())
+    out_bytes = rows * emit.N_GROUPS * emit.GROUP
+    # The yardstick of the gather: torch.gather over int64 indices into the
+    # rows with a zero column appended (index W for d >= out_len).
+    d_all = torch.arange(out_bytes // rows, device=dev)[None, :]
+    absidx = torch.where(d_all < out_len[:, None], idx6.to(torch.int64), src.shape[1])
+    padded = torch.cat([src, torch.zeros_like(src[:, :1])], dim=1)
+    check(torch.equal(torch.gather(padded, 1, absidx), out6), "torch.gather yardstick")
+    for name, got, want, fn, plain, nbytes, ops, lib, where in (
+        ("fused_emit", out5, want5,
+         lambda: emit.fused_emit(*plan, src), lambda: emit.fused_emit_plain(*plan, src),
+         win_bytes + sum_len + out_bytes + 4 * rows, ops5, None,
+         "snappy_tpu/ops/pallas/encode_flat.py:668 fused_emit_pallas"),
+        ("shift_idx", idx6, idx_plain,
+         lambda: emit.shift_idx(*plan), lambda: emit.shift_idx_plain(*plan),
+         win_bytes + 4 * out_bytes + 4 * rows, ops5, None,
+         "snappy_tpu/ops/pallas/encode_flat.py:323 shift_idx_pallas"),
+        ("emit_bytes", out6, want6,
+         lambda: emit.emit_bytes(src, idx6, out_len),
+         lambda: emit.emit_bytes_plain(src, idx6, out_len),
+         5 * sum_len + out_bytes + 4 * rows, 0, lambda: torch.gather(padded, 1, absidx),
+         "snappy_tpu/ops/pallas/encode_flat.py:474 emit_bytes_pallas"),
+    ):
+        bnd, by = bound_ms(nbytes, ops)
+        kernels.append({
+            "name": name, "route": "cuda", "source": "snappy_tpu_torch/csrc/emit.cu",
+            "replaces": where, "shape": [rows, emit.N_GROUPS * emit.GROUP],
+            "equal": torch.equal(got, want), "max_abs_err": max_abs_err(got, want),
+            "ms": cuda_ms(fn, 20), "plain_ms": cuda_ms(plain, 1, warm=0),
+            "bound_ms": bnd, "bound_by": by,
+            "library_ms": cuda_ms(lib, 20) if lib else None,
+        })
+    check(torch.equal(out5, out6), "K5 and K6 give different bytes")
+    check(all(k["equal"] for k in kernels[-3:]), "K5 or K6 differs from its plain version")
+    del cb, jw, rec, plan, bp_rows, dlt_rows, src, out5, out6, idx6, idx_plain, want5, want6
+    del absidx, padded, ref_out
+
+    # -- main paths --------------------------------------------------------------------
     # Each entry point runs with every count set to 0 just before it and read
     # just after: the frame stream takes K2 (both layouts) and K1, the
-    # flatten-rejected raw stream takes K3, and neither takes the other's.
-    counters = (crc32c, decode_flat, replay)
-    runs = {
-        "frame": (lambda: snappy_tpu_torch.decompress_frame(frame), data),
-        "raw": (lambda: snappy_tpu_torch.decompress(raw_fb), plain_fb),
-    }
-    by_path, t_cold = {}, {}
-    for path, (fn, want) in runs.items():
-        for m in counters:
+    # flatten-rejected raw stream takes K3, the compress takes K4 and K5, and
+    # none takes another's.
+    def counts():
+        return {"crc32c": crc32c.launches, "replay": replay.launches,
+                "flat_gather[layout=0]": decode_flat.layout_launches[0],
+                "flat_gather[layout=1]": decode_flat.layout_launches[1],
+                "parse": parse.launches, **emit.entry_launches}
+
+    def reset_counts():
+        for m in (crc32c, decode_flat, replay, parse):
             m.launches = 0
         decode_flat.layout_launches[:] = [0, 0]
+        for k in emit.entry_launches:
+            emit.entry_launches[k] = 0
+
+    runs = {
+        "frame": (lambda: snappy_tpu_torch.decompress_frame(frame), lambda out: out == data),
+        "raw": (lambda: snappy_tpu_torch.decompress(raw_fb), lambda out: out == plain_fb),
+        "compress": (lambda: snappy_tpu_torch.compress(data, profile="fast"),
+                     lambda out: native.decompress(out) == data),
+    }
+    by_path, t_cold, results = {}, {}, {}
+    for path, (fn, ok) in runs.items():
+        reset_counts()
         torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        out = fn()
+        results[path] = fn()
         torch.cuda.synchronize()
         t_cold[path] = time.perf_counter() - t0
-        by_path[path] = {"crc32c": crc32c.launches, "replay": replay.launches,
-                         "flat_gather[layout=0]": decode_flat.layout_launches[0],
-                         "flat_gather[layout=1]": decode_flat.layout_launches[1]}
-        check(out == want, f"{path} path output differs from the input")
-    fr, rw = by_path["frame"], by_path["raw"]
+        by_path[path] = counts()
+        report.setdefault("peak_device_bytes", {})[path] = torch.cuda.max_memory_allocated() - mem0
+        check(ok(results[path]), f"{path} path output differs from the input")
+    fr, rw, cp = by_path["frame"], by_path["raw"], by_path["compress"]
+    encode_names = ("parse", "fused_emit", "shift_idx", "emit_bytes")
     check(fr["crc32c"] >= 1, "K1 crc32c did not run on the frame path")
     check(fr["flat_gather[layout=0]"] >= 1 and fr["flat_gather[layout=1]"] >= 1,
           f"K2 layouts on the frame path: {fr}")
-    check(fr["replay"] == 0, f"K3 ran on the frame path: {fr}")
+    check(fr["replay"] == 0 and not any(fr[k] for k in encode_names),
+          f"K3 or a compress kernel ran on the frame path: {fr}")
     check(rw["replay"] >= 1, "K3 replay did not run on the raw path")
-    check(rw["crc32c"] == 0 and rw["flat_gather[layout=0]"] == 0
-          and rw["flat_gather[layout=1]"] == 0, f"the raw path ran K1 or K2: {rw}")
+    check(not any(v for k, v in rw.items() if k != "replay"), f"the raw path ran another kernel: {rw}")
+    check(cp["parse"] >= 1 and cp["fused_emit"] >= 1, f"K4 or K5 did not run on the compress path: {cp}")
+    check(not any(v for k, v in cp.items() if k not in ("parse", "fused_emit")),
+          f"the compress path ran another kernel: {cp}")
     for k in kernels:
         k["launches_by_path"] = {path: c[k["name"]] for path, c in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
 
-    # The frame path end to end, warm, with timing off; then again with
-    # ops.api.spans on, each run's breakdown against its own end-to-end time.
-    def timed_frame():
+    # The port's contract for compress is the JAX package's bytes, which the
+    # CPU tests hold the CPU run to. The card's stream must start with the
+    # CPU run's bytes for the first blocks of its launch group (every corpus
+    # file, the JPEG included, has a block among them), so the card's
+    # prepass and plan at 2,048 rows agree with the CPU's byte for byte.
+    n_cmp = 64
+    cpu_out, cpu_len = encode_flat.compress_blocks_flat_host(cblocks[:n_cmp], clens[:n_cmp], "cpu")
+    want_head = write_varu64(len(data)) + b"".join(
+        cpu_out[i, : int(cpu_len[i])].tobytes() for i in range(n_cmp))
+    check(results["compress"][: len(want_head)] == want_head,
+          f"the card's compressed stream differs from the CPU run in its first {n_cmp} blocks")
+    report["compress_equals_cpu"] = {"blocks": n_cmp, "bytes": len(want_head)}
+    print(f"compress: the card's first {n_cmp} blocks ({len(want_head)} bytes) equal the CPU run's")
+
+    # The frame and compress paths end to end, warm, with timing off; then
+    # again with ops.api.spans on, each run's breakdown against its own
+    # end-to-end time.
+    def timed(fn):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        snappy_tpu_torch.decompress_frame(frame)
+        fn()
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    e2e = [timed_frame() for _ in range(3)]
-    traced = []
-    for _ in range(3):
-        api.spans = {}
-        t = timed_frame()
-        parts, api.spans = api.spans, None
-        parts["other"] = t - sum(parts.values())
-        traced.append({"e2e_s": t, "parts_s": parts,
-                       "device_busy_share": parts["kernels"] / t})
-    best = min(traced, key=lambda r: r["e2e_s"])
-    report["main_path"] = {
-        "launches_by_path": by_path, "cold_s": t_cold,
-        "e2e_s": e2e, "e2e_GBps": [len(data) / t / 1e9 for t in e2e],
-        "traced": traced,
-        "device_GBps": len(data) / best["parts_s"]["kernels"] / 1e9,
-    }
-    print(f"main path: {len(data)} bytes, frame {len(frame)} bytes, "
-          f"{len(chunks)} compressed chunks in groups {report['stream']['groups']}")
+    for path in ("frame", "compress"):
+        fn = runs[path][0]
+        e2e = [timed(fn) for _ in range(3)]
+        traced = []
+        for _ in range(3):
+            api.spans = {}
+            t = timed(fn)
+            parts, api.spans = api.spans, None
+            parts["other"] = t - sum(parts.values())
+            # device spans: the kernels, and the compress path's tensor ops
+            on_dev = sum(parts.get(k, 0.0) for k in ("kernels", "prepass", "plan"))
+            traced.append({"e2e_s": t, "parts_s": parts, "kernel_share": parts["kernels"] / t,
+                           "device_busy_share": on_dev / t})
+        best = min(traced, key=lambda r: r["e2e_s"])
+        report[f"{path}_path"] = {
+            "launches": by_path[path], "cold_s": t_cold[path],
+            "e2e_s": e2e, "e2e_GBps": [len(data) / t / 1e9 for t in e2e],
+            "traced": traced,
+            "device_GBps": len(data) / best["parts_s"]["kernels"] / 1e9,
+            "peak_device_bytes": report["peak_device_bytes"][path],
+        }
+    report["compress_path"]["ratio"] = len(results["compress"]) / len(data)
+    report["compress_path"]["host_codec_bytes"] = len(native.compress(data))
+    print(f"main paths: {len(data)} bytes; frame {len(frame)} bytes, "
+          f"{len(chunks)} compressed chunks in groups {report['stream']['groups']}; "
+          f"compressed raw {len(results['compress'])} bytes (host codec "
+          f"{report['compress_path']['host_codec_bytes']})")
     print(f"  cold (s): {t_cold}")
-    print(f"  frame end to end, warm (s): {e2e}  GB/s: {report['main_path']['e2e_GBps']}")
-    for r in traced:
-        print(f"  traced run {r['e2e_s']} s: {r['parts_s']}, device busy "
-              f"{r['device_busy_share']}")
+    print(f"  peak device bytes above the resident set: {report['peak_device_bytes']}")
+    for path in ("frame", "compress"):
+        r = report[f"{path}_path"]
+        print(f"  {path} end to end, warm (s): {r['e2e_s']}  GB/s of input/output: {r['e2e_GBps']}")
+        for t in r["traced"]:
+            print(f"  {path} traced run {t['e2e_s']} s: {t['parts_s']}, kernels "
+                  f"{t['kernel_share']}, device busy {t['device_busy_share']}")
     print(f"  launches by path: {by_path}")
+
+    # Every corpus file compressed alone: no larger than the host codec's
+    # stream (the reference encoder), and it decodes back.
+    sizes = {}
+    for name in CORPUS:
+        with open(os.path.join(HERE, "data", name), "rb") as f:
+            blob = f.read()
+        comp = snappy_tpu_torch.compress(blob, profile="fast")
+        sizes[name] = {"bytes": len(blob), "port": len(comp), "host_codec": len(native.compress(blob))}
+        check(native.decompress(comp) == blob, f"{name} does not decode back")
+    report["corpus_sizes"] = sizes
+    print(f"corpus file sizes, port vs host codec: {sizes}")
+    over = [n for n, s in sizes.items() if s["port"] > s["host_codec"]]
+    check(not over, f"compressed larger than the host codec: {over}")
 
     # A corrupted compressed chunk raises what the host engine raises.
     bad = bytearray(frame)

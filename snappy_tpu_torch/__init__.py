@@ -1,22 +1,27 @@
-"""snappy_tpu_torch: the PyTorch/CUDA port of snappy_tpu's device decode.
+"""snappy_tpu_torch: the PyTorch/CUDA port of snappy_tpu's device codec.
 
 A second package beside ``snappy_tpu`` (the JAX/TPU reference, which it
 imports nothing of). Snappy frame streams and raw streams decode on an
 NVIDIA H100 through three hand-written CUDA kernels: a flat gather over
 host-flattened copy chains, a replay decoder for the rows the flatten
 cannot window, and a batched CRC32C. Output bytes and exceptions are
-identical to the reference codec's.
+identical to the reference codec's. Raw streams compress with the fast
+profile through two more: a segment-parallel greedy parse and an
+emission from a breakpoint plan, byte for byte as the JAX package's flat
+encoder.
 
     import snappy_tpu_torch
     data = snappy_tpu_torch.decompress_frame(stream)            # on the card
     data = snappy_tpu_torch.decompress(raw, device="cpu")        # plain versions
+    raw = snappy_tpu_torch.compress(data, profile="fast")       # on the card
 """
 
 from . import error
 from .config import Config, configure, get_config
-from .ops.api import decompress, decompress_frame
+from .ops.api import compress, decompress, decompress_frame
 
 __all__ = [
+    "compress",
     "decompress",
     "decompress_frame",
     "error",

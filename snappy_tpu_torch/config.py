@@ -42,6 +42,8 @@ class Config:
       ``"cuda:N"``) or ``"cpu"``. On ``"cpu"`` each kernel's wrapper
       takes its plain PyTorch version; that is what the CPU tests do.
       With ``"cuda"`` and no card the entry points raise.
+    - ``blocks_per_launch``: 64 KiB blocks per compress launch; a
+      launch's rows pad to the next power of two.
     - ``decode_rows_per_launch``: rows per batched-decode launch group.
     - ``max_device_stream``: single raw streams past this decode on host.
     - ``max_device_output``: declared outputs past this decode on host.
@@ -57,6 +59,7 @@ class Config:
     """
 
     device: str = "cuda"
+    blocks_per_launch: int = 2048
     decode_rows_per_launch: int = 512
     max_device_stream: int = 1 << 26
     max_device_output: int = 1 << 27
@@ -68,6 +71,7 @@ class Config:
 
 #: JAX ``Config`` field -> port field, for the knobs both packages share.
 _REFERENCE_FIELDS = {
+    "blocks_per_launch": "blocks_per_launch",
     "decode_rows_per_launch": "decode_rows_per_launch",
     "max_device_stream": "max_device_stream",
     "max_device_output": "max_device_output",
@@ -84,8 +88,8 @@ def config_from_reference(fields: dict) -> Config:
     ``fields`` is ``dataclasses.asdict`` of a ``snappy_tpu.config.Config``
     (a plain dict, so this module imports nothing of the JAX package).
     Shared knobs carry over; TPU-only ones (Pallas route selectors, the
-    compress batching) have no counterpart and are ignored; ``device``
-    keeps its default.
+    choice of compress encoder) have no counterpart and are ignored;
+    ``device`` keeps its default.
     """
     return Config(
         **{ours: fields[theirs] for theirs, ours in _REFERENCE_FIELDS.items()}

@@ -10,7 +10,8 @@ Exposed: the host halves of the device decode (``flatten_idx_batch``,
 ``scan_records_batch``), the sequential host engine the API falls back to
 and the tests compare with (``decompress``, ``decompress_len``,
 ``decompress_batch``, ``crc32c_masked``, ``frame_decompress``), and the
-frame encoder that makes test and smoke-run streams (``frame_compress``).
+encoders that make test and smoke-run streams and size the device
+encoder's output (``frame_compress``, ``compress``).
 """
 
 from __future__ import annotations
@@ -50,6 +51,8 @@ def _load() -> ctypes.CDLL:
         errp = ctypes.POINTER(_Error)
         sigs = {
             "stpu_crc32c_masked": (ctypes.c_uint32, [ctypes.c_char_p, ctypes.c_size_t]),
+            "stpu_max_compress_len": (u64, [u64]),
+            "stpu_compress": (i64, [ctypes.c_char_p, u64, ptr, u64, errp]),
             "stpu_decompress_len": (i64, [ctypes.c_char_p, u64, errp]),
             "stpu_decompress": (i64, [ctypes.c_char_p, u64, ptr, u64, errp]),
             "stpu_decompress_batch": (
@@ -106,6 +109,19 @@ def _in_rows(arr, dtype):
     if arr.dtype != dtype:
         raise TypeError(f"expected {np.dtype(dtype).name} array, got {arr.dtype}")
     return np.ascontiguousarray(arr)
+
+
+def compress(data: bytes) -> bytes:
+    """The reference encoder's raw stream of ``data`` (sequential host
+    codec; the size yardstick of the device encoder)."""
+    lib = _load()
+    cap = int(lib.stpu_max_compress_len(len(data)))
+    out = np.empty(max(cap, 1), dtype=np.uint8)
+    e = _Error()
+    n = lib.stpu_compress(data, len(data), out.ctypes.data, cap, ctypes.byref(e))
+    if n < 0:
+        _raise(e)
+    return out[:n].tobytes()
 
 
 def decompress_len(data: bytes) -> int:

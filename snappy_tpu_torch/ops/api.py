@@ -1,9 +1,13 @@
-"""Host-facing decode API over the CUDA kernels.
+"""Host-facing API over the CUDA kernels: decode, and compress with the
+fast profile.
 
-The port of the JAX package's ``ops/api.py`` decode half. The host parses
-the tiny framing (varint preambles, frame chunk headers), groups rows by
-width, flattens copy chains with the native runtime, and moves fixed-shape
-batches to and from the device, where three kernels do the byte work:
+The port of the JAX package's ``ops/api.py``. :func:`compress` splits
+its input into 64 KiB blocks for the flat encoder (``ops/encode_flat.py``:
+prepass, K4 segment parse, emission plan, K5 emission). For decode the
+host parses the tiny framing (varint preambles, frame chunk headers),
+groups rows by width, flattens copy chains with the native runtime, and
+moves fixed-shape batches to and from the device, where three kernels do
+the byte work:
 
 - K2 ``decode_flat`` emits every byte from its flattened source index;
 - K3 ``decode_replay`` decodes the groups the flatten cannot window;
@@ -20,7 +24,7 @@ nothing falls back to the CPU. On ``device="cpu"`` the kernels' plain
 PyTorch versions run instead, which is how the CPU tests hold the port
 against the JAX package.
 
-Setting :data:`spans` to ``{}`` times the parts of every decode that
+Setting :data:`spans` to ``{}`` times the parts of every call that
 follows, for a breakdown of the end-to-end time taken from the same run.
 """
 
@@ -45,22 +49,25 @@ from ..format.constants import (
     MAX_COMPRESS_BLOCK_SIZE,
     MAX_INPUT_SIZE,
     STREAM_BODY,
+    max_compress_len,
 )
 from ..format.varint import read_varu64, write_varu64
 from . import packing
 from .crc32c import crc32c_masked_blocks
 from .decode_flat import decode_flat
+from .encode_flat import compress_blocks_flat_host
 from .replay import OK, decode_replay
 
-#: Seconds spent in each part of the decodes run while this is a dict (set
-#: it to ``{}`` to start, ``None`` to stop). Host parts are timed with
-#: ``time.perf_counter``: ``walk`` (frame chunk walk), ``pack`` (grouping
-#: and padding rows), ``flatten`` (native index flatten), ``h2d`` and
-#: ``d2h`` (copies), ``host_decode`` (oversized rows), ``unpack`` (rows
-#: to bytes), ``stored_crc`` (checksums of uncompressed chunks) and
-#: ``join``. ``kernels`` is device time between CUDA events around the
-#: launches, which are synchronised while timing is on so that no host
-#: part includes waiting for them.
+#: Seconds spent in each part of the decodes and compresses run while this
+#: is a dict (set it to ``{}`` to start, ``None`` to stop). Host parts are
+#: timed with ``time.perf_counter``: ``walk`` (frame chunk walk), ``pack``
+#: (splitting, grouping and padding rows), ``flatten`` (native index
+#: flatten), ``h2d`` and ``d2h`` (copies), ``host_decode`` (oversized
+#: rows), ``unpack`` (rows to bytes), ``stored_crc`` (checksums of
+#: uncompressed chunks) and ``join``. Device parts are timed between CUDA
+#: events and synchronised while timing is on, so that no host part
+#: includes waiting for them: ``kernels`` (the launches), and for compress
+#: ``prepass`` and ``plan`` (the tensor ops before K4 and before K5).
 spans: dict[str, float] | None = None
 
 
@@ -100,6 +107,53 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "to run the kernels' plain versions on the CPU"
         )
     return dev
+
+
+def compress(
+    data: bytes, profile: str = "fast", device: str | torch.device | None = None
+) -> bytes:
+    """Compress one raw Snappy stream on the device, with the fast profile.
+
+    Byte-identical to the JAX package's ``ops.api.compress(data,
+    profile="fast")`` with its flat encoder: valid Snappy, at most the
+    reference encoder's size on real data. The host splits the input into
+    64 KiB blocks, launches them in batches of ``Config.blocks_per_launch``
+    rows (padded to a power of two), and joins the varint preamble and
+    each block's op stream. The exact profile (the reference's greedy
+    automaton, byte for byte) is not ported yet and raises.
+    """
+    dev = resolve_device(device)
+    n = len(data)
+    if max_compress_len(n) == 0:
+        raise err.TooBig(given=n, max=MAX_INPUT_SIZE)
+    if n == 0:
+        return b"\x00"
+    if profile == "exact":
+        raise NotImplementedError(
+            "snappy_tpu_torch: profile='exact' (the exact device encoder) is not "
+            "ported yet (ROADMAP.md queue item 5)"
+        )
+    if profile != "fast":
+        raise ValueError(f"unknown profile {profile!r}")
+
+    with _span("pack"):
+        blocks, lengths = packing.blocks_of(data)
+    parts = [write_varu64(n)]
+    bpl = get_config().blocks_per_launch
+    for start in range(0, blocks.shape[0], bpl):
+        with _span("pack"):
+            bb = blocks[start : start + bpl]
+            ll = lengths[start : start + bpl]
+            want = bb.shape[0]
+            padded = packing.pad_to_bucket(want, 1)
+            if padded != want:
+                bb = np.concatenate([bb, np.zeros((padded - want, bb.shape[1]), bb.dtype)])
+                ll = np.concatenate([ll, np.zeros(padded - want, ll.dtype)])
+        outs, outlens = compress_blocks_flat_host(bb, ll, dev, span=_span)
+        with _span("join"):
+            parts.extend(outs[i, : int(outlens[i])].tobytes() for i in range(want))
+    with _span("join"):
+        return b"".join(parts)
 
 
 def _check_header(data: bytes) -> tuple[int, int]:

@@ -11,7 +11,9 @@ from snappy_tpu.format.crc32c import crc32c
 from snappy_tpu.ops import crc32c as jcrc
 from snappy_tpu.ops.pallas.crc32c import crc32c_blocks_pallas
 from snappy_tpu_torch.ops import crc32c as tcrc
+from torch_vectors import share_cores_with_workers
 
+share_cores_with_workers()
 
 def _rows(seed: int, b: int, s: int):
     """Zero-padded random rows with random lengths, including 0 and s."""

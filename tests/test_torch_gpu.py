@@ -17,7 +17,9 @@ from conftest import load_corpus
 from snappy_tpu_torch import native
 from snappy_tpu_torch.format import reference as ref
 from snappy_tpu_torch.format.varint import read_varu64, write_varu64
-from snappy_tpu_torch.ops import api, crc32c, decode_flat, packing, replay
+from snappy_tpu_torch.ops import (
+    api, crc32c, decode_flat, emit, encode_flat, packing, parse, replay,
+)
 from torch_vectors import CORRUPT, fallback_row, overlap_rows
 
 pytestmark = pytest.mark.gpu
@@ -112,6 +114,61 @@ def test_replay_kernel_matches_plain(dev):
     errs = got[1].cpu().numpy()
     n = len(CORRUPT)
     assert (errs[:n] > 0).all() and not errs[n:].any()
+
+
+def _encode_inputs(dev):
+    blocks, lens = packing.batch_streams(CHUNKS + [b""], 65536)
+    bt, lt = torch.from_numpy(blocks).to(dev), torch.from_numpy(lens).to(dev)
+    jw, _ = encode_flat.prepass(bt, lt)
+    return bt, lt, jw
+
+
+def test_parse_kernel_matches_plain(dev):
+    bt, lt, jw = _encode_inputs(dev)
+    before = parse.launches
+    got = parse.parse_blocks(lt, jw, bt)
+    torch.cuda.synchronize()
+    assert parse.launches == before + 1
+    want = parse.parse_blocks_plain(lt, jw, bt)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and torch.equal(g, w)
+    assert int(got[2][..., 0].max()) > 50 and not got[2][..., 1].any()
+
+
+def test_emit_kernels_match_plain(dev):
+    bt, lt, jw = _encode_inputs(dev)
+    rec = parse.parse_blocks(lt, jw, bt)
+    lo_row, base, rows_g, out_len, bp_rows, dlt_rows, src, ovf = encode_flat._fused_plan(
+        bt, lt, *rec
+    )
+    plan = (lo_row, base, rows_g, out_len, bp_rows, dlt_rows)
+    before = dict(emit.entry_launches)
+    out = emit.fused_emit(*plan, src)
+    idx = emit.shift_idx(*plan)
+    out2 = emit.emit_bytes(src, idx, out_len)
+    torch.cuda.synchronize()
+    assert {k: emit.entry_launches[k] - before[k] for k in before} == {
+        "fused_emit": 1, "shift_idx": 1, "emit_bytes": 1,
+    }
+    assert torch.equal(idx, emit.shift_idx_plain(*plan))
+    assert torch.equal(out2, emit.emit_bytes_plain(src, idx, out_len))
+    assert torch.equal(out, emit.fused_emit_plain(*plan, src)) and torch.equal(out, out2)
+    ref_out, ref_len = encode_flat.records_to_bytes(bt, lt, *rec)
+    assert torch.equal(out[:, : encode_flat.OUT_W], ref_out) and torch.equal(out_len, ref_len)
+    assert not ovf.any()
+
+
+def test_compress_on_the_card(dev):
+    data = load_corpus("alice29.txt") + load_corpus("fireworks.jpeg")[:70000] + b"tail" * 999
+    parse.launches = 0
+    for k in emit.entry_launches:
+        emit.entry_launches[k] = 0
+    comp = api.compress(data)
+    assert parse.launches == 1
+    assert emit.entry_launches == {"fused_emit": 1, "shift_idx": 0, "emit_bytes": 0}
+    assert native.decompress(comp) == data
+    assert api.decompress(comp) == data
+    assert comp == api.compress(data, device="cpu")
 
 
 def test_entry_points_on_the_card(dev):

@@ -21,7 +21,10 @@ PORT_MODULES = [
     "snappy_tpu_torch.ops.api",
     "snappy_tpu_torch.ops.crc32c",
     "snappy_tpu_torch.ops.decode_flat",
+    "snappy_tpu_torch.ops.emit",
+    "snappy_tpu_torch.ops.encode_flat",
     "snappy_tpu_torch.ops.packing",
+    "snappy_tpu_torch.ops.parse",
     "snappy_tpu_torch.ops.replay",
 ]
 
@@ -46,21 +49,24 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert [m for m in loaded if _foreign(m)] == []
 
 
-@pytest.mark.parametrize("entry", ["decompress", "decompress_frame"])
+@pytest.mark.parametrize("entry", ["decompress", "decompress_frame", "compress"])
 def test_default_device_without_a_card_raises(entry, monkeypatch):
     import snappy_tpu_torch
     from snappy_tpu_torch.format import reference as ref
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert snappy_tpu_torch.get_config().device == "cuda"
-    raw = ref.compress(b"hello hello hello hello")
-    stream = b"\xff\x06\x00\x00sNaPpY"
+    text = b"hello hello hello hello"
+    arg, want = {
+        "decompress": (ref.compress(text), text),
+        "decompress_frame": (b"\xff\x06\x00\x00sNaPpY", b""),
+        "compress": (text, None),
+    }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        getattr(snappy_tpu_torch, entry)(raw if entry == "decompress" else stream)
+        getattr(snappy_tpu_torch, entry)(arg)
     # The explicit CPU request runs the kernels' plain versions.
-    assert getattr(snappy_tpu_torch, entry)(
-        raw if entry == "decompress" else stream, device="cpu"
-    ) == (b"hello hello hello hello" if entry == "decompress" else b"")
+    got = getattr(snappy_tpu_torch, entry)(arg, device="cpu")
+    assert got == want if want is not None else ref.decompress(got) == text
 
 
 def test_configured_cpu_device_is_honoured(monkeypatch):
@@ -90,6 +96,7 @@ def test_public_surface():
     import snappy_tpu_torch
 
     assert set(snappy_tpu_torch.__all__) == {
-        "decompress", "decompress_frame", "error", "Config", "configure", "get_config",
+        "compress", "decompress", "decompress_frame", "error", "Config", "configure",
+        "get_config",
     }
     assert snappy_tpu_torch.Config().device == "cuda"

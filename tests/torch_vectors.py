@@ -4,7 +4,21 @@ Plain bytes built with numpy only, so that the card-only tests can use
 them on a machine without JAX.
 """
 
+import os
+
 import numpy as np
+
+
+def share_cores_with_workers() -> None:
+    """Give torch's CPU ops this process's share of the cores.
+
+    Under pytest-xdist each worker's torch would start one OpenMP thread
+    per core; six workers' pools then contend for the same cores and slow
+    the plain versions' tensor ops by one to two orders of magnitude."""
+    import torch
+
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // workers))
 
 # (body without varint, declen): the reference's corrupt vectors, then two
 # rows that fail after a valid literal (their prefix must survive).
