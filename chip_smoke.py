@@ -11,20 +11,31 @@ card. Phases:
    its plain PyTorch version on the card at the main path's shapes
    (equality: bytes, codes and CRCs are integers), and timed with CUDA
    events beside its bound;
-3. the main paths' three entry points: a 64 MiB + 5,000-byte frame stream
-   of the ``data/`` corpus, decoded by ``snappy_tpu_torch.decompress_frame``
-   on the card; a raw stream the host flatten rejects, decoded by
-   ``snappy_tpu_torch.decompress``; and the same 64 MiB + 5,000 bytes
+3. the main paths' entry points: a 64 MiB + 5,000-byte frame stream of
+   the ``data/`` corpus, decoded by ``snappy_tpu_torch.decompress_frame``
+   and by ``read.FrameDecoder(engine="device").read()`` on the card; a
+   raw stream the host flatten rejects, decoded by
+   ``snappy_tpu_torch.decompress``; the same 64 MiB + 5,000 bytes
    compressed by ``snappy_tpu_torch.compress(profile="fast")`` (1,025
    blocks in one launch group of 2,048 rows), which must decode back
    exactly and whose first 64 blocks must equal the port's CPU run of
-   them byte for byte. The kernels' launch counts are set to 0 just before each and
-   read just after it; each path must have run its own kernels and no
-   other. The frame and compress paths are then timed end to end, and
-   again with ``ops.api.spans`` on for the breakdown of that same run;
-   every corpus file compressed alone must be no larger than the host
-   codec's stream; a corrupted frame stream must raise what the host
-   engine raises.
+   them byte for byte; compressed by ``snappy_tpu_torch.compress`` (exact,
+   the default), which must equal the host codec's stream, as the golden
+   ``.rawsnappy`` must come out exactly; and written through
+   ``write.FrameEncoder(engine="device")``, which must equal the host
+   codec's frames. The kernels' launch counts are set to 0 just before
+   each and read just after it; each path must have run its own kernels
+   and no other (exact compress K7 only, the writer K1 and K7, the
+   reader K1 and K2). The frame, fast, exact and writer paths are then
+   timed end to end, and again with ``ops.api.spans`` on for the
+   breakdown of that same run; every corpus file compressed alone with
+   the fast profile must be no larger than the host codec's stream; a
+   corrupted frame stream must raise what the host engine raises.
+
+K7, the exact encoder, is held against its plain version (a Python loop
+of small launches per automaton step) on 8 corpus blocks and timed on the
+compress path's launch group; the plain version also counts every
+block's automaton steps there, K7's serial bound.
 
 It prints one ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Details go to
@@ -33,6 +44,7 @@ It prints one ``{"kernels": [...]}`` line, then as its last line
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import subprocess
@@ -168,10 +180,10 @@ def main() -> int:
         print("chip_smoke: snappy_tpu_torch/ is not beside this script", file=sys.stderr)
         return 1
     import snappy_tpu_torch
-    from snappy_tpu_torch import native
+    from snappy_tpu_torch import native, read, write
     from snappy_tpu_torch.format.varint import read_varu64, write_varu64
     from snappy_tpu_torch.ops import (
-        _build, api, crc32c, decode_flat, emit, encode_flat, packing, parse, replay,
+        _build, api, crc32c, decode_flat, emit, encode, encode_flat, packing, parse, replay,
     )
 
     dev = torch.device("cuda")
@@ -180,7 +192,12 @@ def main() -> int:
         check=True, capture_output=True, text=True,
     ).stdout.strip().splitlines()[0]
     print(card)
-    report = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
+    sm_mhz = int(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0])
+    report = {"card": card, "sm_max_mhz": sm_mhz, "torch": torch.__version__,
+              "cuda": torch.version.cuda}
 
     # -- build ---------------------------------------------------------------
     t0 = time.perf_counter()
@@ -424,6 +441,50 @@ def main() -> int:
         })
     check(torch.equal(out5, out6), "K5 and K6 give different bytes")
     check(all(k["equal"] for k in kernels[-3:]), "K5 or K6 differs from its plain version")
+
+    # -- K7 exact encoder ----------------------------------------------------------------
+    # Against its plain version on 8 corpus blocks of 64 KiB (a Python loop of
+    # small launches per automaton step), timed on the compress path's own
+    # launch group. Its bound, two ways: the bytes (every live block read once,
+    # every output row and length written once), and the serial work: the
+    # most automaton steps of any block of the group, which the plain version
+    # counts (K7 takes exactly these steps, each after the last), at one step
+    # per clock of the SM's highest clock.
+    sample = list(range(0, 64, 8))
+    sb, sl = cb[sample].contiguous(), cl[sample].contiguous()
+    got7 = encode.compress_blocks(sb, sl)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want7 = encode.compress_blocks_plain(sb, sl)
+    torch.cuda.synchronize()
+    plain7_ms = (time.perf_counter() - t0) * 1e3
+    eq7 = all(torch.equal(g, w) for g, w in zip(got7, want7))
+    check(eq7, "K7 differs from its plain version on 8 corpus blocks")
+    t0 = time.perf_counter()
+    *_, scan_steps, extend_steps = encode.find_ops_lockstep(cb, cl)
+    steps = (scan_steps + extend_steps)[: len(clens)]
+    report["encode_steps"] = {
+        "max": int(steps.max()), "mean": float(steps.double().mean()),
+        "scan_max": int(scan_steps.max()), "extend_max": int(extend_steps.max()),
+        "count_s": time.perf_counter() - t0,
+    }
+    t_bytes7 = (int(clens.sum()) + 4 * rows + rows * (encode.OUT_W + 4)) / PEAK_BYTES_PER_S * 1e3
+    t_serial7 = int(steps.max()) / (sm_mhz * 1e6) * 1e3
+    kernels.append({
+        "name": "encode", "route": "cuda", "source": "snappy_tpu_torch/csrc/encode.cu",
+        "replaces": "snappy_tpu/ops/pallas/encode.py:320 compress_blocks_pallas",
+        "shape": [rows, 65536], "live_blocks": live_blocks, "equal": eq7,
+        "max_abs_err": max(max_abs_err(g, w) for g, w in zip(got7, want7)),
+        "ms": cuda_ms(lambda: encode.compress_blocks(cb, cl), 5),
+        "plain_ms": plain7_ms, "plain_rows": len(sample),
+        "ms_plain_rows": cuda_ms(lambda: encode.compress_blocks(sb, sl), 5),
+        "bound_ms": max(t_bytes7, t_serial7),
+        "bound_by": "bytes" if t_bytes7 >= t_serial7 else "operations",
+        "bound_bytes_ms": t_bytes7, "bound_serial_ms": t_serial7,
+        "max_steps": report["encode_steps"]["max"], "library_ms": None,
+    })
+    print(f"K7: plain version on {len(sample)} blocks {plain7_ms:.1f} ms; steps {report['encode_steps']}")
+    del sb, sl, got7, want7
     del cb, jw, rec, plan, bp_rows, dlt_rows, src, out5, out6, idx6, idx_plain, want5, want6
     del absidx, padded, ref_out
 
@@ -436,20 +497,32 @@ def main() -> int:
         return {"crc32c": crc32c.launches, "replay": replay.launches,
                 "flat_gather[layout=0]": decode_flat.layout_launches[0],
                 "flat_gather[layout=1]": decode_flat.layout_launches[1],
-                "parse": parse.launches, **emit.entry_launches}
+                "parse": parse.launches, "encode": encode.launches, **emit.entry_launches}
 
     def reset_counts():
-        for m in (crc32c, decode_flat, replay, parse):
+        for m in (crc32c, decode_flat, replay, parse, encode):
             m.launches = 0
         decode_flat.layout_launches[:] = [0, 0]
         for k in emit.entry_launches:
             emit.entry_launches[k] = 0
 
+    def write_frames():
+        out = io.BytesIO()
+        w = write.FrameEncoder(out, engine="device")
+        w.write(data)
+        w.flush()
+        return out.getvalue()
+
+    host_raw = native.compress(data)
     runs = {
         "frame": (lambda: snappy_tpu_torch.decompress_frame(frame), lambda out: out == data),
         "raw": (lambda: snappy_tpu_torch.decompress(raw_fb), lambda out: out == plain_fb),
         "compress": (lambda: snappy_tpu_torch.compress(data, profile="fast"),
                      lambda out: native.decompress(out) == data),
+        "exact": (lambda: snappy_tpu_torch.compress(data), lambda out: out == host_raw),
+        "writer": (write_frames, lambda out: out == frame),
+        "reader": (lambda: read.FrameDecoder(io.BytesIO(frame), engine="device").read(),
+                   lambda out: out == data),
     }
     by_path, t_cold, results = {}, {}, {}
     for path, (fn, ok) in runs.items():
@@ -465,12 +538,20 @@ def main() -> int:
         report.setdefault("peak_device_bytes", {})[path] = torch.cuda.max_memory_allocated() - mem0
         check(ok(results[path]), f"{path} path output differs from the input")
     fr, rw, cp = by_path["frame"], by_path["raw"], by_path["compress"]
-    encode_names = ("parse", "fused_emit", "shift_idx", "emit_bytes")
-    check(fr["crc32c"] >= 1, "K1 crc32c did not run on the frame path")
-    check(fr["flat_gather[layout=0]"] >= 1 and fr["flat_gather[layout=1]"] >= 1,
-          f"K2 layouts on the frame path: {fr}")
-    check(fr["replay"] == 0 and not any(fr[k] for k in encode_names),
-          f"K3 or a compress kernel ran on the frame path: {fr}")
+    encode_names = ("parse", "fused_emit", "shift_idx", "emit_bytes", "encode")
+    for path in ("frame", "reader"):
+        c = by_path[path]
+        check(c["crc32c"] >= 1, f"K1 crc32c did not run on the {path} path")
+        check(c["flat_gather[layout=0]"] >= 1 and c["flat_gather[layout=1]"] >= 1,
+              f"K2 layouts on the {path} path: {c}")
+        check(c["replay"] == 0 and not any(c[k] for k in encode_names),
+              f"K3 or a compress kernel ran on the {path} path: {c}")
+    ex, wr = by_path["exact"], by_path["writer"]
+    check(ex["encode"] >= 1 and not any(v for k, v in ex.items() if k != "encode"),
+          f"the exact compress path ran other kernels than K7: {ex}")
+    check(wr["encode"] >= 1 and wr["crc32c"] >= 1
+          and not any(v for k, v in wr.items() if k not in ("encode", "crc32c")),
+          f"the frame writer ran other kernels than K1 and K7: {wr}")
     check(rw["replay"] >= 1, "K3 replay did not run on the raw path")
     check(not any(v for k, v in rw.items() if k != "replay"), f"the raw path ran another kernel: {rw}")
     check(cp["parse"] >= 1 and cp["fused_emit"] >= 1, f"K4 or K5 did not run on the compress path: {cp}")
@@ -493,6 +574,15 @@ def main() -> int:
           f"the card's compressed stream differs from the CPU run in its first {n_cmp} blocks")
     report["compress_equals_cpu"] = {"blocks": n_cmp, "bytes": len(want_head)}
     print(f"compress: the card's first {n_cmp} blocks ({len(want_head)} bytes) equal the CPU run's")
+    # The exact path: the host codec's stream over all 1,025 blocks (checked
+    # above), and the golden raw stream.
+    with open(os.path.join(HERE, "data", "Mark.Twain-Tom.Sawyer.txt"), "rb") as f:
+        golden_text = f.read()
+    with open(os.path.join(HERE, "data", "Mark.Twain-Tom.Sawyer.txt.rawsnappy"), "rb") as f:
+        golden_raw = f.read()
+    check(snappy_tpu_torch.compress(golden_text) == golden_raw, "the golden .rawsnappy differs")
+    print(f"exact compress: {len(results['exact'])} bytes, equal to the host codec's; "
+          "the golden .rawsnappy reproduced; the device frame writer equals native.frame_compress")
 
     # The frame and compress paths end to end, warm, with timing off; then
     # again with ops.api.spans on, each run's breakdown against its own
@@ -504,7 +594,7 @@ def main() -> int:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    for path in ("frame", "compress"):
+    for path in ("frame", "compress", "exact", "writer"):
         fn = runs[path][0]
         e2e = [timed(fn) for _ in range(3)]
         traced = []
@@ -513,8 +603,8 @@ def main() -> int:
             t = timed(fn)
             parts, api.spans = api.spans, None
             parts["other"] = t - sum(parts.values())
-            # device spans: the kernels, and the compress path's tensor ops
-            on_dev = sum(parts.get(k, 0.0) for k in ("kernels", "prepass", "plan"))
+            # device spans: the kernels, and the compress paths' tensor ops
+            on_dev = sum(parts.get(k, 0.0) for k in ("kernels", "prepass", "plan", "assemble"))
             traced.append({"e2e_s": t, "parts_s": parts, "kernel_share": parts["kernels"] / t,
                            "device_busy_share": on_dev / t})
         best = min(traced, key=lambda r: r["e2e_s"])
@@ -526,14 +616,14 @@ def main() -> int:
             "peak_device_bytes": report["peak_device_bytes"][path],
         }
     report["compress_path"]["ratio"] = len(results["compress"]) / len(data)
-    report["compress_path"]["host_codec_bytes"] = len(native.compress(data))
+    report["compress_path"]["host_codec_bytes"] = len(host_raw)
     print(f"main paths: {len(data)} bytes; frame {len(frame)} bytes, "
           f"{len(chunks)} compressed chunks in groups {report['stream']['groups']}; "
           f"compressed raw {len(results['compress'])} bytes (host codec "
           f"{report['compress_path']['host_codec_bytes']})")
     print(f"  cold (s): {t_cold}")
     print(f"  peak device bytes above the resident set: {report['peak_device_bytes']}")
-    for path in ("frame", "compress"):
+    for path in ("frame", "compress", "exact", "writer"):
         r = report[f"{path}_path"]
         print(f"  {path} end to end, warm (s): {r['e2e_s']}  GB/s of input/output: {r['e2e_GBps']}")
         for t in r["traced"]:

@@ -5,18 +5,23 @@ imports nothing of). Snappy frame streams and raw streams decode on an
 NVIDIA H100 through three hand-written CUDA kernels: a flat gather over
 host-flattened copy chains, a replay decoder for the rows the flatten
 cannot window, and a batched CRC32C. Output bytes and exceptions are
-identical to the reference codec's. Raw streams compress with the fast
-profile through two more: a segment-parallel greedy parse and an
-emission from a breakpoint plan, byte for byte as the JAX package's flat
-encoder.
+identical to the reference codec's. Raw streams compress exactly (the
+reference encoder's bytes) through a fourth, the greedy automaton one
+warp per block, or with the fast profile through two more: a
+segment-parallel greedy parse and an emission from a breakpoint plan,
+byte for byte as the JAX package's flat encoder. The streaming adapters
+``raw``, ``read`` and ``write`` take the same engine names as the JAX
+package's; on ``device`` the frame writer compresses and checksums whole
+launches of chunks on the card.
 
     import snappy_tpu_torch
     data = snappy_tpu_torch.decompress_frame(stream)            # on the card
     data = snappy_tpu_torch.decompress(raw, device="cpu")        # plain versions
-    raw = snappy_tpu_torch.compress(data, profile="fast")       # on the card
+    raw = snappy_tpu_torch.compress(data)                       # exact, on the card
+    snappy_tpu_torch.write.FrameEncoder(f, engine="device").write(data)
 """
 
-from . import error
+from . import engine, error, raw, read, write
 from .config import Config, configure, get_config
 from .ops.api import compress, decompress, decompress_frame
 
@@ -24,7 +29,11 @@ __all__ = [
     "compress",
     "decompress",
     "decompress_frame",
+    "engine",
     "error",
+    "raw",
+    "read",
+    "write",
     "Config",
     "configure",
     "get_config",

@@ -56,6 +56,11 @@ class Config:
     - ``threads``: host C++ codec thread cap; 0 = hardware concurrency.
     - ``debug``: cross-check every device decode against the NumPy
       oracle and fail loudly on divergence.
+    - ``engine``: the engine the streaming adapters (``raw``, ``read``,
+      ``write``) take when they are given ``"auto"``: ``auto`` (the
+      native C++ codec, else the NumPy reference), ``native``,
+      ``reference``, ``device`` or ``device-fast`` (see
+      :mod:`snappy_tpu_torch.engine`).
     """
 
     device: str = "cuda"
@@ -67,10 +72,12 @@ class Config:
     replay_max_body: int = 1 << 17
     threads: int = 0
     debug: bool = False
+    engine: str = "auto"
 
 
 #: JAX ``Config`` field -> port field, for the knobs both packages share.
 _REFERENCE_FIELDS = {
+    "engine": "engine",
     "blocks_per_launch": "blocks_per_launch",
     "decode_rows_per_launch": "decode_rows_per_launch",
     "max_device_stream": "max_device_stream",

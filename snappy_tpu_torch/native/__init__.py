@@ -9,9 +9,11 @@ decode path needs the host flatten.
 Exposed: the host halves of the device decode (``flatten_idx_batch``,
 ``scan_records_batch``), the sequential host engine the API falls back to
 and the tests compare with (``decompress``, ``decompress_len``,
-``decompress_batch``, ``crc32c_masked``, ``frame_decompress``), and the
-encoders that make test and smoke-run streams and size the device
-encoder's output (``frame_compress``, ``compress``).
+``decompress_batch``, ``crc32c_masked``, ``frame_decompress``), the
+encoders of the host engine, which also make test and smoke-run streams
+(``frame_compress``, ``compress``), and the into-buffer calls of the
+streaming adapters (``compress_into``, ``decompress_into``,
+``frame_decompress_len``, ``frame_decompress_into``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import numpy as np
 
 from .. import error as err_mod
 from ..config import get_config
+from ..format.constants import MAX_INPUT_SIZE, max_compress_len
 
 _SRC = Path(__file__).resolve().parent / "core.cpp"
 _lock = threading.Lock()
@@ -122,6 +125,29 @@ def compress(data: bytes) -> bytes:
     if n < 0:
         _raise(e)
     return out[:n].tobytes()
+
+
+def compress_into(data: bytes, out: np.ndarray) -> int:
+    """Compress into the caller's uint8 ndarray; returns bytes written.
+    The size checks run in C++, with the same errors."""
+    if max_compress_len(len(data)) == 0:
+        raise err_mod.TooBig(given=len(data), max=MAX_INPUT_SIZE)
+    e = _Error()
+    n = _load().stpu_compress(data, len(data), out.ctypes.data, out.shape[0], ctypes.byref(e))
+    if n < 0:
+        _raise(e)
+    return n
+
+
+def decompress_into(data: bytes, out: np.ndarray) -> int:
+    """Decompress into the caller's uint8 ndarray; returns bytes written.
+    Empty input, header, TooBig and BufferTooSmall are checked in one C++
+    call, in the reference's order and with its errors."""
+    e = _Error()
+    n = _load().stpu_decompress(data, len(data), out.ctypes.data, out.shape[0], ctypes.byref(e))
+    if n < 0:
+        _raise(e)
+    return n
 
 
 def decompress_len(data: bytes) -> int:
@@ -262,22 +288,42 @@ def frame_compress(data: bytes, threads: int = 0) -> bytes:
     return out[:m].tobytes()
 
 
+def frame_decompress_len(data, n: int | None = None) -> int:
+    """Total decompressed size of a whole frame stream (the walk only).
+
+    ``data`` may be bytes or a ctypes char-array view over a mutable
+    buffer; ``n`` bounds the walk when the view is longer than the
+    stream."""
+    e = _Error()
+    total = _load().stpu_frame_decompress_len(
+        data, len(data) if n is None else n, ctypes.byref(e)
+    )
+    if total < 0:
+        _raise(e)
+    return int(total)
+
+
+def frame_decompress_into(data, out: np.ndarray, threads: int = 0, n: int | None = None) -> int:
+    """Decode a whole frame stream into the caller's uint8 ndarray;
+    returns bytes written. ``data`` and ``n`` as for
+    :func:`frame_decompress_len`: the streaming reader decodes straight
+    out of its accumulation buffer into a reused scratch."""
+    e = _Error()
+    m = _load().stpu_frame_decompress(
+        data, len(data) if n is None else n, out.ctypes.data, out.shape[0],
+        _threads(threads), ctypes.byref(e),
+    )
+    if m < 0:
+        _raise(e)
+    return int(m)
+
+
 def frame_decompress(data: bytes, threads: int = 0) -> bytes:
     """Decode a whole frame stream on the host, with the streaming
     reader's error semantics (first failing chunk in stream order wins;
     decode errors precede that chunk's checksum check)."""
-    lib = _load()
-    e = _Error()
-    total = lib.stpu_frame_decompress_len(data, len(data), ctypes.byref(e))
-    if total < 0:
-        _raise(e)
-    out = np.empty(max(int(total), 1), dtype=np.uint8)
-    m = lib.stpu_frame_decompress(
-        data, len(data), out.ctypes.data, total, _threads(threads), ctypes.byref(e)
-    )
-    if m < 0:
-        _raise(e)
-    return out[:m].tobytes()
+    out = np.empty(max(frame_decompress_len(data), 1), dtype=np.uint8)
+    return out[: frame_decompress_into(data, out, threads)].tobytes()
 
 
 def crc32c_masked(data: bytes) -> int:

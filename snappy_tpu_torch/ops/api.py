@@ -1,9 +1,9 @@
-"""Host-facing API over the CUDA kernels: decode, and compress with the
-fast profile.
+"""Host-facing API over the CUDA kernels: decode and compress.
 
 The port of the JAX package's ``ops/api.py``. :func:`compress` splits
-its input into 64 KiB blocks for the flat encoder (``ops/encode_flat.py``:
-prepass, K4 segment parse, emission plan, K5 emission). For decode the
+its input into 64 KiB blocks for the exact encoder (``ops/encode.py``,
+K7, the default) or the flat encoder (``ops/encode_flat.py``: prepass,
+K4 segment parse, emission plan, K5 emission). For decode the
 host parses the tiny framing (varint preambles, frame chunk headers),
 groups rows by width, flattens copy chains with the native runtime, and
 moves fixed-shape batches to and from the device, where three kernels do
@@ -55,6 +55,7 @@ from ..format.varint import read_varu64, write_varu64
 from . import packing
 from .crc32c import crc32c_masked_blocks
 from .decode_flat import decode_flat
+from .encode import compress_blocks_host
 from .encode_flat import compress_blocks_flat_host
 from .replay import OK, decode_replay
 
@@ -66,8 +67,9 @@ from .replay import OK, decode_replay
 #: rows), ``unpack`` (rows to bytes), ``stored_crc`` (checksums of
 #: uncompressed chunks) and ``join``. Device parts are timed between CUDA
 #: events and synchronised while timing is on, so that no host part
-#: includes waiting for them: ``kernels`` (the launches), and for compress
-#: ``prepass`` and ``plan`` (the tensor ops before K4 and before K5).
+#: includes waiting for them: ``kernels`` (the launches), for the fast
+#: compress ``prepass`` and ``plan`` (the tensor ops before K4 and before
+#: K5), and for the device frame writer ``assemble`` (the chunk framing).
 spans: dict[str, float] | None = None
 
 
@@ -110,17 +112,19 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 
 
 def compress(
-    data: bytes, profile: str = "fast", device: str | torch.device | None = None
+    data: bytes, profile: str = "exact", device: str | torch.device | None = None
 ) -> bytes:
-    """Compress one raw Snappy stream on the device, with the fast profile.
+    """Compress one raw Snappy stream on the device.
 
-    Byte-identical to the JAX package's ``ops.api.compress(data,
-    profile="fast")`` with its flat encoder: valid Snappy, at most the
-    reference encoder's size on real data. The host splits the input into
-    64 KiB blocks, launches them in batches of ``Config.blocks_per_launch``
-    rows (padded to a power of two), and joins the varint preamble and
-    each block's op stream. The exact profile (the reference's greedy
-    automaton, byte for byte) is not ported yet and raises.
+    ``profile="exact"`` (the default) runs the reference's greedy
+    automaton per block (K7): byte for byte the reference encoder's
+    stream and the JAX package's ``ops.api.compress(data)``.
+    ``profile="fast"`` runs the flat encoder (K4, K5): byte for byte the
+    JAX package's ``compress(data, profile="fast")`` with its flat
+    encoder, valid Snappy, at most the reference encoder's size on real
+    data. The host splits the input into 64 KiB blocks, launches them in
+    batches of ``Config.blocks_per_launch`` rows (padded to a power of
+    two), and joins the varint preamble and each block's op stream.
     """
     dev = resolve_device(device)
     n = len(data)
@@ -129,11 +133,10 @@ def compress(
     if n == 0:
         return b"\x00"
     if profile == "exact":
-        raise NotImplementedError(
-            "snappy_tpu_torch: profile='exact' (the exact device encoder) is not "
-            "ported yet (ROADMAP.md queue item 5)"
-        )
-    if profile != "fast":
+        codec = compress_blocks_host
+    elif profile == "fast":
+        codec = compress_blocks_flat_host
+    else:
         raise ValueError(f"unknown profile {profile!r}")
 
     with _span("pack"):
@@ -149,7 +152,7 @@ def compress(
             if padded != want:
                 bb = np.concatenate([bb, np.zeros((padded - want, bb.shape[1]), bb.dtype)])
                 ll = np.concatenate([ll, np.zeros(padded - want, ll.dtype)])
-        outs, outlens = compress_blocks_flat_host(bb, ll, dev, span=_span)
+        outs, outlens = codec(bb, ll, dev, span=_span)
         with _span("join"):
             parts.extend(outs[i, : int(outlens[i])].tobytes() for i in range(want))
     with _span("join"):

@@ -520,20 +520,20 @@ def compress_blocks_flat_host(blocks, lengths, device, span=_no_span):
     lengths in, numpy ``(out (B, OUT_W) uint8, out_len (B,) int32)`` out,
     computed on ``device``.
 
-    The JAX package re-encodes a flagged block with its XLA fast profile;
-    that encoder is not ported (ROADMAP.md queue item 5), so a flag
-    raises rather than returning another encoder's bytes."""
+    A block the flat encoder flags (unreachable, see
+    :func:`compress_blocks_flat_fast`) takes the bytes of
+    :func:`.encode_fast.compress_blocks_fast` instead, as in the JAX
+    package, so callers always get valid streams."""
     dev = torch.device(device)
     with span("h2d"):
         blocks_t = torch.from_numpy(np.ascontiguousarray(blocks, np.uint8)).to(dev)
         lens_t = torch.from_numpy(np.asarray(lengths, np.int32)).to(dev)
     out, out_len, ovf = compress_blocks_flat_fast(blocks_t, lens_t, span)
+    bad = ovf != 0
+    if bool(bad.any()):
+        from .encode_fast import compress_blocks_fast
+
+        fout, flen = compress_blocks_fast(blocks_t[bad], lens_t[bad])
+        out[bad], out_len[bad] = fout, flen
     with span("d2h"):
-        out, out_len, ovf = out.cpu().numpy(), out_len.cpu().numpy(), ovf.cpu().numpy()
-    if ovf.any():
-        raise RuntimeError(
-            "snappy_tpu_torch: the flat encoder flagged blocks "
-            f"{np.nonzero(ovf)[0].tolist()} as overflowing; their fallback, the "
-            "XLA fast profile, is not ported yet (ROADMAP.md queue item 5)"
-        )
-    return out, out_len
+        return out.cpu().numpy(), out_len.cpu().numpy()

@@ -20,9 +20,10 @@ from snappy_tpu.ops import api as japi
 from snappy_tpu_torch import native
 from snappy_tpu_torch.config import Config, config_from_reference, configure
 from snappy_tpu_torch.ops import api
-from torch_vectors import fallback_row, share_cores_with_workers
+from torch_vectors import fallback_row, hold_jax_native, share_cores_with_workers
 
 share_cores_with_workers()
+hold_jax_native()
 
 
 @pytest.fixture(autouse=True)

@@ -24,9 +24,11 @@ from snappy_tpu_torch import native
 from snappy_tpu_torch.config import Config, config_from_reference, configure
 from snappy_tpu_torch.format.varint import write_varu64
 from snappy_tpu_torch.ops import api, encode_flat as ef, packing
-from torch_vectors import share_cores_with_workers
+from snappy_tpu_torch.ops.encode_fast import compress_blocks_fast
+from torch_vectors import hold_jax_native, share_cores_with_workers
 
 share_cores_with_workers()
+hold_jax_native()
 
 # Three full blocks and a short tail; blocks_of gives 4 rows, the batch
 # shape of every JAX call below but one.
@@ -51,7 +53,7 @@ def test_compress_matches_jax_package(data):
 
 
 def test_compress_roundtrips_through_the_port():
-    comp = api.compress(DATA, device="cpu")
+    comp = api.compress(DATA, profile="fast", device="cpu")
     assert native.decompress(comp) == DATA
     assert api.decompress(comp, device="cpu") == DATA
 
@@ -88,15 +90,18 @@ def test_first_block_of_each_corpus_file_is_no_larger_than_the_host_codec():
 
 
 def test_exact_profile_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue item 5"):
-        api.compress(b"hello hello hello hello", profile="exact", device="cpu")
+    """The exact profile is ported: the JAX package's exact bytes, with or
+    without the profile named; an unknown profile raises."""
+    text = b"hello hello hello hello"
+    assert api.compress(text, profile="exact", device="cpu") == japi.compress(text, profile="exact")
+    assert api.compress(text, device="cpu") == japi.compress(text) == native.compress(text)
     with pytest.raises(ValueError, match="unknown profile"):
         api.compress(b"hello hello hello hello", profile="fastest", device="cpu")
 
 
 def test_an_overflow_flag_raises(monkeypatch):
-    """The JAX package re-encodes a flagged block with its XLA fast
-    profile; the port has no such encoder yet and must not return bytes."""
+    """A flagged block does not raise: as in the JAX package, it takes the
+    bytes of the fast parallel encoder (``ops/encode_fast.py``)."""
     real = ef.compress_blocks_flat_fast
 
     def flagged(blocks, lengths, span):
@@ -104,8 +109,12 @@ def test_an_overflow_flag_raises(monkeypatch):
         return out, out_len, torch.ones_like(ovf)
 
     monkeypatch.setattr(ef, "compress_blocks_flat_fast", flagged)
-    with pytest.raises(RuntimeError, match="ROADMAP.md queue item 5"):
-        api.compress(b"abcd" * 100, device="cpu")
+    data = b"abcd" * 100
+    got = api.compress(data, profile="fast", device="cpu")
+    blocks, lens = packing.blocks_of(data)
+    out, out_len = compress_blocks_fast(torch.from_numpy(blocks), torch.from_numpy(lens))
+    assert got == write_varu64(len(data)) + out[0, : int(out_len[0])].numpy().tobytes()
+    assert native.decompress(got) == data
 
 
 def test_blocks_per_launch_batches_and_spans(monkeypatch):
@@ -117,11 +126,11 @@ def test_blocks_per_launch_batches_and_spans(monkeypatch):
                         lambda b, *a, **k: calls.append(b.shape) or real(b, *a, **k))
     monkeypatch.setattr(api, "spans", {})
     with configure(blocks_per_launch=3):
-        got = api.compress(DATA, device="cpu")
+        got = api.compress(DATA, profile="fast", device="cpu")
     assert calls == [(4, 65536), (1, 65536)]  # 3 blocks padded to 4, then 1
     assert set(api.spans) == {"pack", "h2d", "prepass", "kernels", "plan", "d2h", "join"}
     monkeypatch.setattr(api, "spans", None)
-    assert got == api.compress(DATA, device="cpu")
+    assert got == api.compress(DATA, profile="fast", device="cpu")
 
 
 def test_config_from_reference_carries_blocks_per_launch():

@@ -11,9 +11,10 @@ from snappy_tpu.format.crc32c import crc32c
 from snappy_tpu.ops import crc32c as jcrc
 from snappy_tpu.ops.pallas.crc32c import crc32c_blocks_pallas
 from snappy_tpu_torch.ops import crc32c as tcrc
-from torch_vectors import share_cores_with_workers
+from torch_vectors import hold_jax_native, share_cores_with_workers
 
 share_cores_with_workers()
+hold_jax_native()
 
 def _rows(seed: int, b: int, s: int):
     """Zero-padded random rows with random lengths, including 0 and s."""

@@ -15,9 +15,10 @@ from snappy_tpu.ops.pallas.decode import decode_flat_pallas, decode_flat_pallas_
 from snappy_tpu_torch import native
 from snappy_tpu_torch.ops import decode_flat as flat
 from snappy_tpu_torch.ops import packing
-from torch_vectors import share_cores_with_workers
+from torch_vectors import hold_jax_native, share_cores_with_workers
 
 share_cores_with_workers()
+hold_jax_native()
 
 def _group(datas, d_pad, layout):
     bodies = []

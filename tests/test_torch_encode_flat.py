@@ -21,9 +21,10 @@ from conftest import load_corpus
 from snappy_tpu.ops import encode_flat as jef
 from snappy_tpu.ops.pallas import encode_flat as jpef
 from snappy_tpu_torch.ops import emit, encode_flat as ef, parse
-from torch_vectors import share_cores_with_workers
+from torch_vectors import hold_jax_native, share_cores_with_workers
 
 share_cores_with_workers()
+hold_jax_native()
 _rng = np.random.default_rng(11)
 BATCHES = {
     "corpus": lambda: [

@@ -18,7 +18,7 @@ from snappy_tpu_torch import native
 from snappy_tpu_torch.format import reference as ref
 from snappy_tpu_torch.format.varint import read_varu64, write_varu64
 from snappy_tpu_torch.ops import (
-    api, crc32c, decode_flat, emit, encode_flat, packing, parse, replay,
+    api, crc32c, decode_flat, emit, encode, encode_flat, packing, parse, replay,
 )
 from torch_vectors import CORRUPT, fallback_row, overlap_rows
 
@@ -163,12 +163,62 @@ def test_compress_on_the_card(dev):
     parse.launches = 0
     for k in emit.entry_launches:
         emit.entry_launches[k] = 0
-    comp = api.compress(data)
+    comp = api.compress(data, profile="fast")
     assert parse.launches == 1
     assert emit.entry_launches == {"fused_emit": 1, "shift_idx": 0, "emit_bytes": 0}
     assert native.decompress(comp) == data
     assert api.decompress(comp) == data
-    assert comp == api.compress(data, device="cpu")
+    assert comp == api.compress(data, profile="fast", device="cpu")
+
+
+def test_encode_kernel_matches_plain(dev):
+    """K7 against its plain version: the edge rows, seeded repetitive
+    rows and corpus blocks, at 4096 and 65536 bytes a row."""
+    rng = np.random.default_rng(3)
+    edge = [
+        b"hello world hello world hello world!", bytes(rng.integers(0, 4, 3000, dtype=np.uint8)),
+        b"a" * 500, load_corpus("html")[:4096], bytes(rng.integers(0, 256, 1200, dtype=np.uint8)),
+        b"xy", b"q" * 16, b"q" * 17, b"",
+    ]
+    for seed in range(4):
+        seg = rng.integers(0, [2, 8, 64, 256][seed], 300 + 100 * seed, dtype=np.uint8)
+        edge.append(np.tile(seg, 4)[: 1000 + 700 * seed].tobytes())
+    blocks_cases = [
+        (edge, 4096),
+        ([load_corpus(n)[:65536] for n in ("alice29.txt", "fireworks.jpeg", "kppkn.gtb")]
+         + [b"abcdefgh" * 8192, bytes(65536), load_corpus("html")[:50000]], 65536),
+    ]
+    for datas, width in blocks_cases:
+        rows, lens = packing.batch_streams(datas, width)
+        bt, lt = torch.from_numpy(rows).to(dev), torch.from_numpy(lens).to(dev)
+        before = encode.launches
+        out, out_len = encode.compress_blocks(bt, lt)
+        torch.cuda.synchronize()
+        assert encode.launches == before + 1
+        want, want_len = encode.compress_blocks_plain(bt, lt)
+        assert torch.equal(out_len, want_len) and torch.equal(out, want)
+        host = out.cpu().numpy()
+        for i, d in enumerate(datas):
+            c = native.compress(d)
+            body = c[read_varu64(c)[1]:] if d else b""
+            assert host[i, : int(out_len[i])].tobytes() == body
+
+
+def test_exact_compress_and_frame_writer_on_the_card(dev):
+    import io
+
+    from snappy_tpu_torch import read, write
+
+    data = load_corpus("alice29.txt") + load_corpus("fireworks.jpeg")[:70000] + b"tail" * 999
+    encode.launches = crc32c.launches = 0
+    assert api.compress(data) == native.compress(data)
+    assert encode.launches == 1 and crc32c.launches == 0
+    out = io.BytesIO()
+    encode.launches = 0
+    write.FrameEncoder(out, engine="device").write(data)
+    assert encode.launches == 1 and crc32c.launches == 1
+    assert out.getvalue() == native.frame_compress(data)
+    assert read.FrameDecoder(io.BytesIO(out.getvalue()), engine="device").read() == data
 
 
 def test_entry_points_on_the_card(dev):

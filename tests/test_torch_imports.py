@@ -9,23 +9,35 @@ import sys
 import pytest
 import torch
 
+from torch_vectors import hold_jax_native
+
+hold_jax_native()
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PORT_MODULES = [
     "snappy_tpu_torch",
     "snappy_tpu_torch.config",
+    "snappy_tpu_torch.engine",
     "snappy_tpu_torch.error",
     "snappy_tpu_torch.format.reference",
+    "snappy_tpu_torch.frame",
     "snappy_tpu_torch.native",
     "snappy_tpu_torch.ops._build",
     "snappy_tpu_torch.ops.api",
     "snappy_tpu_torch.ops.crc32c",
     "snappy_tpu_torch.ops.decode_flat",
     "snappy_tpu_torch.ops.emit",
+    "snappy_tpu_torch.ops.encode",
+    "snappy_tpu_torch.ops.encode_fast",
     "snappy_tpu_torch.ops.encode_flat",
+    "snappy_tpu_torch.ops.frame",
     "snappy_tpu_torch.ops.packing",
     "snappy_tpu_torch.ops.parse",
     "snappy_tpu_torch.ops.replay",
+    "snappy_tpu_torch.raw",
+    "snappy_tpu_torch.read",
+    "snappy_tpu_torch.write",
 ]
 
 
@@ -69,6 +81,39 @@ def test_default_device_without_a_card_raises(entry, monkeypatch):
     assert got == want if want is not None else ref.decompress(got) == text
 
 
+BIG = b"0123456789abcdef" * 5000  # over 64 KiB: the device frame writer
+
+
+@pytest.mark.parametrize("adapter", ["frame-writer", "frame-reader", "raw-decoder", "raw-encoder-fast"])
+def test_device_engines_without_a_card_raise(adapter, monkeypatch):
+    """The ``device`` engines run on ``Config.device``, ``cuda`` by default:
+    without a card they raise; under ``configure(device="cpu")`` they run
+    the kernels' plain versions."""
+    import io
+
+    import snappy_tpu_torch
+    from snappy_tpu_torch import native, raw, read, write
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    stream = native.frame_compress(BIG)
+
+    def run():
+        if adapter == "frame-writer":
+            out = io.BytesIO()
+            write.FrameEncoder(out, engine="device").write(BIG)
+            return native.frame_decompress(out.getvalue())
+        if adapter == "frame-reader":
+            return read.FrameDecoder(io.BytesIO(stream), engine="device").read()
+        if adapter == "raw-decoder":
+            return raw.Decoder("device").decompress_vec(native.compress(BIG))
+        return native.decompress(raw.Encoder("device-fast").compress_vec(BIG))
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run()
+    with snappy_tpu_torch.configure(device="cpu"):
+        assert run() == BIG
+
+
 def test_configured_cpu_device_is_honoured(monkeypatch):
     import snappy_tpu_torch
     from snappy_tpu_torch.format import reference as ref
@@ -96,7 +141,7 @@ def test_public_surface():
     import snappy_tpu_torch
 
     assert set(snappy_tpu_torch.__all__) == {
-        "compress", "decompress", "decompress_frame", "error", "Config", "configure",
-        "get_config",
+        "compress", "decompress", "decompress_frame", "engine", "error", "raw", "read",
+        "write", "Config", "configure", "get_config",
     }
     assert snappy_tpu_torch.Config().device == "cuda"

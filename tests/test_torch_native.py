@@ -17,7 +17,10 @@ from snappy_tpu.format.varint import read_varu64
 from snappy_tpu_torch import native
 from snappy_tpu_torch.format import tables
 from snappy_tpu_torch.ops import _build, packing
-from torch_vectors import CORRUPT, fallback_row
+from torch_vectors import CORRUPT, fallback_row, hold_jax_native, share_cores_with_workers
+
+share_cores_with_workers()
+hold_jax_native()
 
 
 def _body(data: bytes) -> tuple[bytes, int]:

@@ -13,9 +13,10 @@ from snappy_tpu.format import reference as jref
 from snappy_tpu.format.varint import read_varu64
 from snappy_tpu.ops.pallas.decode import decode_batch_pallas
 from snappy_tpu_torch.ops import replay
-from torch_vectors import CORRUPT, overlap_rows, share_cores_with_workers
+from torch_vectors import CORRUPT, overlap_rows, hold_jax_native, share_cores_with_workers
 
 share_cores_with_workers()
+hold_jax_native()
 
 MODES = [False, True, "compose"]
 

@@ -4,9 +4,14 @@ Plain bytes built with numpy only, so that the card-only tests can use
 them on a machine without JAX.
 """
 
+import fcntl
 import os
+import time
+from pathlib import Path
 
 import numpy as np
+
+REPO = Path(__file__).resolve().parents[1]
 
 
 def share_cores_with_workers() -> None:
@@ -19,6 +24,36 @@ def share_cores_with_workers() -> None:
 
     workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
     torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // workers))
+
+
+def hold_jax_native(attempts: int = 8) -> None:
+    """Load the JAX package's native library and extension in this process.
+
+    ``snappy_tpu.native`` builds both next to its sources through one
+    shared ``.tmp`` path per library and, when a load fails, latches
+    ``_load_failed`` (or ``_ext = False``) for the life of the process.
+    Several test workers loading it at once for the first time race on
+    that path, and the losers keep no library: every later call in that
+    worker fails. Loading under a lock in ``build/`` lets one worker build
+    at a time; a lost race (with a process that takes no lock) clears the
+    latches and loads again once the winner's library is in place.
+    Imports the JAX package here, not at module level: the card's machine
+    has no JAX. Gives up quietly after ``attempts``: a library that cannot
+    build at all fails the tests that use it, not the collection."""
+    from snappy_tpu import native as jnative
+
+    lock_dir = REPO / "build"
+    lock_dir.mkdir(exist_ok=True)
+    with open(lock_dir / "jax_native.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        for _ in range(attempts):
+            if jnative._load() is not None and jnative._get_ext():
+                return
+            if jnative._lib is None:
+                jnative._load_failed = False
+            if jnative._ext is False:
+                jnative._ext = None
+            time.sleep(0.5)
 
 # (body without varint, declen): the reference's corrupt vectors, then two
 # rows that fail after a valid literal (their prefix must survive).
