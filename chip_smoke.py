@@ -26,11 +26,23 @@ card. Phases:
    codec's frames. The kernels' launch counts are set to 0 just before
    each and read just after it; each path must have run its own kernels
    and no other (exact compress K7 only, the writer K1 and K7, the
-   reader K1 and K2). The frame, fast, exact and writer paths are then
+   reader K1 and K2). The same frame stream is decoded again by the two
+   record-scan routes: under ``configure(decode_resolve=True)`` (K8, then
+   K2 ``layout=1``, for every group the route takes; the tail group on
+   the flat route) and under ``configure(decode_records=True)`` (K10 on
+   every group, K3 only for a group whose records overflow the scan's
+   cap), the reader under the latter; the route each launch group took
+   is printed. The frame, fast, exact, writer and both route paths are then
    timed end to end, and again with ``ops.api.spans`` on for the
    breakdown of that same run; every corpus file compressed alone with
    the fast profile must be no larger than the host codec's stream; a
    corrupted frame stream must raise what the host engine raises.
+
+K8 and K9 (chain resolution) and K10 (record replay) are held against
+their plain versions on the frame's largest launch group (455 rows,
+``d_pad`` 65536) as the host's record scan leaves it, and K9's path
+(``decode_resolve_batch(use_fused=False)``) must give the host codec's
+bytes there.
 
 K7, the exact encoder, is held against its plain version (a Python loop
 of small launches per automaton step) on 8 corpus blocks and timed on the
@@ -183,7 +195,8 @@ def main() -> int:
     from snappy_tpu_torch import native, read, write
     from snappy_tpu_torch.format.varint import read_varu64, write_varu64
     from snappy_tpu_torch.ops import (
-        _build, api, crc32c, decode_flat, emit, encode, encode_flat, packing, parse, replay,
+        _build, api, crc32c, decode_flat, emit, encode, encode_flat, packing, parse, records,
+        replay, resolve,
     )
 
     dev = torch.device("cuda")
@@ -488,6 +501,78 @@ def main() -> int:
     del cb, jw, rec, plan, bp_rows, dlt_rows, src, out5, out6, idx6, idx_plain, want5, want6
     del absidx, padded, ref_out
 
+    # -- K8, K9 and K10 on the frame's largest launch group, as the host scans it -------
+    srcs, glens, gd, d_pad = group_inputs(big)
+    rec_cap = api._record_cap(srcs.shape[1])
+    t0 = time.perf_counter()
+    recs, nops, herrs, _ = native.scan_records_batch(
+        srcs, glens.astype(np.uint64), np.asarray(gd, np.uint64), rec_cap)
+    report["scan_largest_group_s"] = time.perf_counter() - t0
+    check(int(nops.max()) <= rec_cap and not herrs.any(), "the scan rejected a corpus chunk")
+    r_pad = max(512, -(-int(nops.max()) // 512) * 512)
+    s_t, r_t, n_t, d_t = (torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (
+        srcs, recs[:, :r_pad], nops.astype(np.int32), np.asarray(gd, np.int32)))
+    expect = np.zeros((len(big), d_pad), np.uint8)
+    plain = native.decompress_batch([write_varu64(gd[j]) + bodies[i] for j, i in enumerate(big)])
+    for j, p in enumerate(plain):
+        expect[j, : gd[j]] = np.frombuffer(p, np.uint8)
+    startsx, payload = resolve.records_to_kernel_inputs(r_t, n_t, d_t, d_pad)
+    a0 = resolve.records_to_pointers(r_t, n_t, d_t, d_pad)
+    # Bytes the work needs: each input read once (the valid records, 8
+    # bytes each, and the lengths; K9's first-hop plane; K10's literal
+    # bytes) and each plane or row written once. K8 and K9 also read their
+    # own plane back once for every first hop that leaves its 1024-byte
+    # tile; those reads hit lines the CTA has just written, and are counted
+    # only in bound_with_hops_ms.
+    n_rec = int(nops.sum())
+    tile0 = torch.arange(d_pad, device=dev)[None, :] // 1024 * 1024
+    cross_hops = int(((a0 >= 0) & (a0 < tile0)).sum())
+    valid_rec = torch.arange(r_pad, device=dev)[None, :] < n_t[:, None]
+    w0 = r_t[:, :, 0]
+    lit_bytes = int(torch.where(valid_rec & (w0 >> 30 == 1), w0 & 0x3FFFFFFF, 0).sum())
+    plane_bytes = 4 * len(big) * d_pad
+    report["resolve_group"] = {"rows": len(big), "d_pad": d_pad, "records": n_rec,
+                               "record_cap": rec_cap, "r_pad": r_pad,
+                               "cross_tile_hops": cross_hops, "literal_bytes": lit_bytes}
+    got8 = resolve.resolve_fh(startsx, payload, d_t, d_pad)
+    want8 = resolve.resolve_fh_plain(startsx, payload, d_t, d_pad)
+    got9 = resolve.resolve(a0)
+    want9 = resolve.resolve_reference(a0)
+    got10 = records.decode_records(s_t, r_t, n_t, d_t, d_pad)
+    want10 = records.decode_records_plain(s_t, r_t, n_t, d_t, d_pad)
+    out9, fb9 = resolve.decode_resolve_batch(s_t, r_t, n_t, d_t, d_pad, use_fused=False)
+    check(not fb9.any() and bool((out9.cpu().numpy() == expect).all()),
+          "K9's path (decode_resolve_batch, use_fused=False) differs from the host codec")
+    check(bool((got8 >= resolve.FLAG).all()), "K8 left a chain of a corpus chunk unresolved")
+    check(bool((got10.cpu().numpy() == expect).all()), "K10 differs from the host codec")
+    for name, got, want, fn, plain_fn, nbytes, hop_bytes, where in (
+        ("resolve_fh", got8, want8, lambda: resolve.resolve_fh(startsx, payload, d_t, d_pad),
+         lambda: resolve.resolve_fh_plain(startsx, payload, d_t, d_pad),
+         8 * n_rec + 4 * len(big) + plane_bytes, 4 * cross_hops,
+         "snappy_tpu/ops/pallas/resolve.py:439 resolve_fh_pallas"),
+        ("resolve", got9, want9, lambda: resolve.resolve(a0), lambda: resolve.resolve_reference(a0),
+         2 * plane_bytes, 4 * cross_hops, "snappy_tpu/ops/pallas/resolve.py:207 resolve_pallas"),
+        ("records", got10, want10, lambda: records.decode_records(s_t, r_t, n_t, d_t, d_pad),
+         lambda: records.decode_records_plain(s_t, r_t, n_t, d_t, d_pad),
+         8 * n_rec + 8 * len(big) + lit_bytes + len(big) * d_pad, 0,
+         "snappy_tpu/ops/pallas/decode.py:1451 decode_records_pallas"),
+    ):
+        bnd, by = bound_ms(nbytes)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"snappy_tpu_torch/csrc/{'records' if name == 'records' else 'resolve'}.cu",
+            "replaces": where, "shape": [len(big), srcs.shape[1], d_pad, r_pad],
+            "equal": torch.equal(got, want), "max_abs_err": max_abs_err(got, want),
+            "ms": cuda_ms(fn, 10), "plain_ms": cuda_ms(plain_fn, 3, warm=1),
+            "bound_ms": bnd, "bound_by": by, "library_ms": None,
+            "bound_with_hops_ms": bound_ms(nbytes + hop_bytes)[0],
+        })
+        check(kernels[-1]["equal"], f"{name} differs from its plain version")
+    print(f"K8/K9/K10 group: {report['resolve_group']}, host scan "
+          f"{report['scan_largest_group_s']:.4f} s")
+    del s_t, r_t, n_t, d_t, startsx, payload, a0, tile0, valid_rec, w0
+    del got8, want8, got9, want9, got10, want10, out9
+
     # -- main paths --------------------------------------------------------------------
     # Each entry point runs with every count set to 0 just before it and read
     # just after: the frame stream takes K2 (both layouts) and K1, the
@@ -497,14 +582,22 @@ def main() -> int:
         return {"crc32c": crc32c.launches, "replay": replay.launches,
                 "flat_gather[layout=0]": decode_flat.layout_launches[0],
                 "flat_gather[layout=1]": decode_flat.layout_launches[1],
-                "parse": parse.launches, "encode": encode.launches, **emit.entry_launches}
+                "parse": parse.launches, "encode": encode.launches, **emit.entry_launches,
+                **resolve.launches, "records": records.launches}
 
     def reset_counts():
-        for m in (crc32c, decode_flat, replay, parse, encode):
+        for m in (crc32c, decode_flat, replay, parse, encode, records):
             m.launches = 0
         decode_flat.layout_launches[:] = [0, 0]
-        for k in emit.entry_launches:
-            emit.entry_launches[k] = 0
+        for d in (emit.entry_launches, resolve.launches):
+            for k in d:
+                d[k] = 0
+
+    def under(fn, **cfg):
+        def run():
+            with snappy_tpu_torch.configure(**cfg):
+                return fn()
+        return run
 
     def write_frames():
         out = io.BytesIO()
@@ -523,10 +616,17 @@ def main() -> int:
         "writer": (write_frames, lambda out: out == frame),
         "reader": (lambda: read.FrameDecoder(io.BytesIO(frame), engine="device").read(),
                    lambda out: out == data),
+        "frame_resolve": (under(lambda: snappy_tpu_torch.decompress_frame(frame),
+                                decode_resolve=True), lambda out: out == data),
+        "frame_records": (under(lambda: snappy_tpu_torch.decompress_frame(frame),
+                                decode_records=True), lambda out: out == data),
+        "reader_records": (under(lambda: read.FrameDecoder(io.BytesIO(frame), engine="device")
+                                 .read(), decode_records=True), lambda out: out == data),
     }
-    by_path, t_cold, results = {}, {}, {}
+    by_path, t_cold, results, group_routes = {}, {}, {}, {}
     for path, (fn, ok) in runs.items():
         reset_counts()
+        api.routes = []
         torch.cuda.synchronize()
         mem0 = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -535,17 +635,37 @@ def main() -> int:
         torch.cuda.synchronize()
         t_cold[path] = time.perf_counter() - t0
         by_path[path] = counts()
+        group_routes[path], api.routes = api.routes, None
         report.setdefault("peak_device_bytes", {})[path] = torch.cuda.max_memory_allocated() - mem0
         check(ok(results[path]), f"{path} path output differs from the input")
     fr, rw, cp = by_path["frame"], by_path["raw"], by_path["compress"]
     encode_names = ("parse", "fused_emit", "shift_idx", "emit_bytes", "encode")
+    scan_names = ("resolve_fh", "resolve", "records")
     for path in ("frame", "reader"):
         c = by_path[path]
         check(c["crc32c"] >= 1, f"K1 crc32c did not run on the {path} path")
         check(c["flat_gather[layout=0]"] >= 1 and c["flat_gather[layout=1]"] >= 1,
               f"K2 layouts on the {path} path: {c}")
-        check(c["replay"] == 0 and not any(c[k] for k in encode_names),
-              f"K3 or a compress kernel ran on the {path} path: {c}")
+        check(c["replay"] == 0 and not any(c[k] for k in encode_names + scan_names),
+              f"K3, a compress kernel or a record-scan kernel ran on the {path} path: {c}")
+    c = by_path["frame_resolve"]
+    check(c["resolve_fh"] >= 1 and c["flat_gather[layout=1]"] == c["resolve_fh"]
+          and c["flat_gather[layout=0]"] >= 1 and c["crc32c"] >= 1,
+          f"K8, K2 or K1 on the resolve path: {c}")
+    check(not any(c[k] for k in ("replay", "resolve", "records") + encode_names),
+          f"the resolve path ran another kernel: {c}")
+    check([r for r in group_routes["frame_resolve"] if r[2] == "resolve"]
+          == [r for r in group_routes["frame_resolve"] if r[1] % 16384 == 0],
+          f"a group left the resolve route: {group_routes['frame_resolve']}")
+    for path in ("frame_records", "reader_records"):
+        c, rts = by_path[path], group_routes[path]
+        overflow = sum(r[2] == "replay" for r in rts)
+        check(c["records"] == len(rts) - overflow and c["replay"] == overflow
+              and c["crc32c"] >= 1 and {r[2] for r in rts} <= {"records", "replay"},
+              f"K10, K3 or K1 on the {path} path: {c}, routes {rts}")
+        check(not any(c[k] for k in ("flat_gather[layout=0]", "flat_gather[layout=1]",
+                                      "resolve_fh", "resolve") + encode_names),
+              f"the {path} path ran another kernel: {c}")
     ex, wr = by_path["exact"], by_path["writer"]
     check(ex["encode"] >= 1 and not any(v for k, v in ex.items() if k != "encode"),
           f"the exact compress path ran other kernels than K7: {ex}")
@@ -594,7 +714,8 @@ def main() -> int:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    for path in ("frame", "compress", "exact", "writer"):
+    timed_paths = ("frame", "frame_resolve", "frame_records", "compress", "exact", "writer")
+    for path in timed_paths:
         fn = runs[path][0]
         e2e = [timed(fn) for _ in range(3)]
         traced = []
@@ -614,6 +735,7 @@ def main() -> int:
             "traced": traced,
             "device_GBps": len(data) / best["parts_s"]["kernels"] / 1e9,
             "peak_device_bytes": report["peak_device_bytes"][path],
+            "routes": group_routes[path],
         }
     report["compress_path"]["ratio"] = len(results["compress"]) / len(data)
     report["compress_path"]["host_codec_bytes"] = len(host_raw)
@@ -623,8 +745,9 @@ def main() -> int:
           f"{report['compress_path']['host_codec_bytes']})")
     print(f"  cold (s): {t_cold}")
     print(f"  peak device bytes above the resident set: {report['peak_device_bytes']}")
-    for path in ("frame", "compress", "exact", "writer"):
+    for path in timed_paths:
         r = report[f"{path}_path"]
+        print(f"  {path} launch groups (rows, d_pad, route): {r['routes']}")
         print(f"  {path} end to end, warm (s): {r['e2e_s']}  GB/s of input/output: {r['e2e_GBps']}")
         for t in r["traced"]:
             print(f"  {path} traced run {t['e2e_s']} s: {t['parts_s']}, kernels "
@@ -645,24 +768,35 @@ def main() -> int:
     over = [n for n, s in sizes.items() if s["port"] > s["host_codec"]]
     check(not over, f"compressed larger than the host codec: {over}")
 
-    # A corrupted compressed chunk raises what the host engine raises.
-    bad = bytearray(frame)
-    bad[chunks[0][2] + 4 + 4 + 40] ^= 0x5A  # inside the first compressed body
-    got_e = want_e = None
-    try:
-        snappy_tpu_torch.decompress_frame(bytes(bad))
-    except Exception as e:  # the comparison below is the check
-        got_e = e
-    try:
-        native.frame_decompress(bytes(bad))
-    except Exception as e:
-        want_e = e
-    check(want_e is not None and got_e is not None, "the corrupted stream decoded clean")
-    check(type(got_e) is type(want_e) and str(got_e) == str(want_e)
-          and getattr(got_e, "_values", lambda: None)() == getattr(want_e, "_values", lambda: None)(),
-          f"corrupt stream: port raised {got_e!r}, host engine {want_e!r}")
-    report["corrupt"] = repr(got_e)
-    print(f"corrupt stream raises {got_e!r}")
+    # A corrupted compressed chunk raises what the host engine raises, on
+    # every decode route: a flipped byte inside the first compressed body
+    # (the chunk's checksum fails) and its first tag made a copy from
+    # before the output's start (the decode fails).
+    report["corrupt"] = {}
+    for what, at, value in (("body byte", 48, None), ("first tag", 11, 0xFF)):
+        bad = bytearray(frame)
+        pos = chunks[0][2] + at
+        bad[pos] = bad[pos] ^ 0x5A if value is None else value
+        bad = bytes(bad)
+        want_e = None
+        try:
+            native.frame_decompress(bad)
+        except Exception as e:  # the comparison below is the check
+            want_e = e
+        check(want_e is not None, f"the host engine decoded the stream with a bad {what}")
+        for route, cfg in (("flat", {}), ("resolve", {"decode_resolve": True}),
+                           ("records", {"decode_records": True})):
+            got_e = None
+            try:
+                under(lambda: snappy_tpu_torch.decompress_frame(bad), **cfg)()
+            except Exception as e:
+                got_e = e
+            check(type(got_e) is type(want_e) and str(got_e) == str(want_e)
+                  and getattr(got_e, "_values", lambda: None)() == want_e._values(),
+                  f"a bad {what} on the {route} route: port raised {got_e!r}, "
+                  f"host engine {want_e!r}")
+        report["corrupt"][what] = repr(want_e)
+    print(f"corrupt streams raise what the host engine raises on every route: {report['corrupt']}")
 
     report["kernels"] = kernels
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

@@ -45,6 +45,20 @@ class Config:
     - ``blocks_per_launch``: 64 KiB blocks per compress launch; a
       launch's rows pad to the next power of two.
     - ``decode_rows_per_launch``: rows per batched-decode launch group.
+    - ``decode_records``: decode launch groups by record replay (K10):
+      the host scans each row's ops into 8-byte records
+      (``native.scan_records_batch``) and the card replays them. A group
+      whose op count overflows the scan's record cap takes the replay
+      kernel (K3). Takes precedence over ``decode_resolve``. Off by
+      default, as the JAX package's ``pallas_records``.
+    - ``decode_resolve``: decode launch groups by chain resolution on the
+      card (``ops/resolve.py``: K8, then the flat gather K2): the host
+      only scans ops into records, and the card builds every byte's
+      literal origin itself. It takes groups of outputs in whole 16 KiB
+      up to 64 KiB and rows up to 64 KiB; a group it cannot finish (a
+      record-cap overflow, a source spread past the widest window, a
+      chain left unresolved) takes the flat route. Off by default, as
+      the JAX package's ``pallas_resolve``.
     - ``max_device_stream``: single raw streams past this decode on host.
     - ``max_device_output``: declared outputs past this decode on host.
     - ``max_dpad``: padded output width per launch group; wider groups
@@ -66,6 +80,8 @@ class Config:
     device: str = "cuda"
     blocks_per_launch: int = 2048
     decode_rows_per_launch: int = 512
+    decode_records: bool = False
+    decode_resolve: bool = False
     max_device_stream: int = 1 << 26
     max_device_output: int = 1 << 27
     max_dpad: int = 1 << 20
@@ -80,6 +96,8 @@ _REFERENCE_FIELDS = {
     "engine": "engine",
     "blocks_per_launch": "blocks_per_launch",
     "decode_rows_per_launch": "decode_rows_per_launch",
+    "pallas_records": "decode_records",
+    "pallas_resolve": "decode_resolve",
     "max_device_stream": "max_device_stream",
     "max_device_output": "max_device_output",
     "pallas_max_dpad": "max_dpad",
@@ -94,7 +112,8 @@ def config_from_reference(fields: dict) -> Config:
 
     ``fields`` is ``dataclasses.asdict`` of a ``snappy_tpu.config.Config``
     (a plain dict, so this module imports nothing of the JAX package).
-    Shared knobs carry over; TPU-only ones (Pallas route selectors, the
+    Shared knobs carry over, the record-scan decode routes' selectors
+    among them; TPU-only ones (the other Pallas route selectors, the
     choice of compress encoder) have no counterpart and are ignored;
     ``device`` keeps its default.
     """

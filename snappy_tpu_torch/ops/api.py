@@ -13,6 +13,12 @@ the byte work:
 - K3 ``decode_replay`` decodes the groups the flatten cannot window;
 - K1 ``crc32c_masked_blocks`` checks every decoded frame chunk.
 
+Two opt-in routes start from the host's op-record scan
+(``native.scan_records_batch``) instead of the flatten, with the JAX
+package's precedence and fall-through: ``Config.decode_records`` replays the
+records (K10, ``ops/records.py``), and ``Config.decode_resolve`` resolves
+every byte's literal origin on the card (K8, ``ops/resolve.py``) before K2.
+
 Exact error parity: kernels reduce validity to a device code; on any
 flagged stream the host re-runs the NumPy reference codec, which raises
 the identical exception the sequential loop would have (same variant,
@@ -57,20 +63,29 @@ from .crc32c import crc32c_masked_blocks
 from .decode_flat import decode_flat
 from .encode import compress_blocks_host
 from .encode_flat import compress_blocks_flat_host
+from .records import decode_records
 from .replay import OK, decode_replay
+from .resolve import decode_resolve_batch
 
 #: Seconds spent in each part of the decodes and compresses run while this
 #: is a dict (set it to ``{}`` to start, ``None`` to stop). Host parts are
 #: timed with ``time.perf_counter``: ``walk`` (frame chunk walk), ``pack``
 #: (splitting, grouping and padding rows), ``flatten`` (native index
-#: flatten), ``h2d`` and ``d2h`` (copies), ``host_decode`` (oversized
-#: rows), ``unpack`` (rows to bytes), ``stored_crc`` (checksums of
-#: uncompressed chunks) and ``join``. Device parts are timed between CUDA
+#: flatten), ``scan`` (native op-record scan), ``h2d`` and ``d2h``
+#: (copies), ``host_decode`` (oversized rows), ``unpack`` (rows to bytes),
+#: ``stored_crc`` (checksums of uncompressed chunks) and ``join``. Device parts are timed between CUDA
 #: events and synchronised while timing is on, so that no host part
 #: includes waiting for them: ``kernels`` (the launches), for the fast
 #: compress ``prepass`` and ``plan`` (the tensor ops before K4 and before
-#: K5), and for the device frame writer ``assemble`` (the chunk framing).
+#: K5), for the resolve route ``plan`` (its tensor ops around K8 or K9), and
+#: for the device frame writer ``assemble`` (the chunk framing).
 spans: dict[str, float] | None = None
+
+#: The route each decode launch group took, in order, while this is a list
+#: (set it to ``[]`` to start, ``None`` to stop): ``(rows, d_pad, route)``
+#: with ``route`` one of ``"flat"``, ``"replay"``, ``"records"``,
+#: ``"resolve"``.
+routes: list[tuple[int, int, str]] | None = None
 
 
 @contextlib.contextmanager
@@ -226,39 +241,86 @@ def launch_groups(bodies: list[bytes], rows_per_launch: int) -> list[list[int]]:
     return groups
 
 
+def _record_cap(width: int) -> int:
+    """The record scan's cap for rows of ``width`` bytes (as the JAX
+    package's routes size it): half the width plus one, at most 16 Ki
+    records, in whole 512s."""
+    return -(-min(16384, width // 2 + 1) // 512) * 512
+
+
+def _scan_route(srcs, lens64, decl64, srcs_t, declens_t, d_pad, cfg):
+    """The record-scan routes of one launch group: K10 under
+    ``decode_records``, K8 then K2 under ``decode_resolve``. Returns
+    ``(dst, errs)``, or ``None`` where the group falls through (a record-cap
+    overflow, or a resolve fallback flag)."""
+    rec_cap = _record_cap(srcs.shape[1])
+    with _span("scan"):
+        recs, nops, herrs, _ = native.scan_records_batch(srcs, lens64, decl64, rec_cap)
+    n_max = int(nops.max(initial=0))
+    if n_max > rec_cap:
+        return None
+    r_pad = max(512, -(-n_max // 512) * 512)
+    with _span("h2d"):
+        recs_t = torch.from_numpy(np.ascontiguousarray(recs[:, :r_pad])).to(srcs_t.device)
+        nops_t = torch.from_numpy(nops.astype(np.int32)).to(srcs_t.device)
+    if cfg.decode_records:
+        with _span("kernels", srcs_t.device):
+            return decode_records(srcs_t, recs_t, nops_t, declens_t, d_pad), herrs
+    dst, fallback = decode_resolve_batch(srcs_t, recs_t, nops_t, declens_t, d_pad, span=_span)
+    with _span("d2h"):
+        return None if bool(fallback.any()) else (dst, herrs)
+
+
 def decode_group(srcs: np.ndarray, lens: np.ndarray, declens: list[int], d_pad: int,
                  dev: torch.device):
     """Decode one launch group of zero-padded bodies on ``dev``.
 
-    The host flatten resolves every copy chain and K2 gathers the bytes
-    (``layout=1`` when ``d_pad`` is whole 16 KiB groups, else 0); if the
-    flatten cannot window some tile of the group, the whole group takes
-    K3 instead. Returns ``(dst (B, d_pad) uint8 on dev, errs (B,) int32
-    numpy, declens (B,) int32 on dev)``.
+    Under ``Config.decode_records`` the host scans the ops into records and
+    K10 replays them; a group whose op count overflows the record cap takes
+    K3. Else under ``Config.decode_resolve``, for a group of outputs in whole
+    16 KiB up to 64 KiB and rows up to 64 KiB, the host scans and the card
+    resolves (``ops/resolve.py``); a group it cannot finish falls through.
+    Otherwise (the default) the host flatten resolves every copy chain and
+    K2 gathers the bytes (``layout=1`` when ``d_pad`` is whole 16 KiB
+    groups, else 0); if the flatten cannot window some tile of the group,
+    the whole group takes K3 instead. Returns ``(dst (B, d_pad) uint8 on
+    dev, errs (B,) int32 numpy, declens (B,) int32 on dev)``.
     """
+    cfg = get_config()
     lens64 = np.asarray(lens, np.uint64)
     decl64 = np.asarray(declens, np.uint64)
-    layout = 1 if d_pad % 16384 == 0 else 0
-    with _span("flatten"):
-        idx, tmeta, fallb, herrs, _ = native.flatten_idx_batch(
-            srcs, lens64, decl64, d_pad, layout=layout
-        )
     with _span("h2d"):
         srcs_t = torch.from_numpy(srcs).to(dev)
         declens_t = torch.from_numpy(np.asarray(declens, np.int32)).to(dev)
-    if not fallb.any():
+    got = None
+    resolve_ok = d_pad % 16384 == 0 and d_pad <= 65536 and srcs.shape[1] <= 65536
+    if cfg.decode_records or (cfg.decode_resolve and resolve_ok):
+        got = _scan_route(srcs, lens64, decl64, srcs_t, declens_t, d_pad, cfg)
+        route = "records" if cfg.decode_records else "resolve"
+    if got is None and not cfg.decode_records:
+        layout = 1 if d_pad % 16384 == 0 else 0
+        with _span("flatten"):
+            idx, tmeta, fallb, herrs, _ = native.flatten_idx_batch(
+                srcs, lens64, decl64, d_pad, layout=layout
+            )
+        if not fallb.any():
+            with _span("h2d"):
+                idx_t = torch.from_numpy(idx.view(np.int16)).to(dev)
+                tmeta_t = torch.from_numpy(tmeta).to(dev)
+            with _span("kernels", dev):
+                got = decode_flat(srcs_t, idx_t, tmeta_t, declens_t, d_pad, layout), herrs
+            route = "flat"
+    if got is None:
         with _span("h2d"):
-            idx_t = torch.from_numpy(idx.view(np.int16)).to(dev)
-            tmeta_t = torch.from_numpy(tmeta).to(dev)
+            lens_t = torch.from_numpy(np.asarray(lens, np.int32)).to(dev)
         with _span("kernels", dev):
-            dst = decode_flat(srcs_t, idx_t, tmeta_t, declens_t, d_pad, layout)
-        return dst, herrs, declens_t
-    with _span("h2d"):
-        lens_t = torch.from_numpy(np.asarray(lens, np.int32)).to(dev)
-    with _span("kernels", dev):
-        dst, gerrs = decode_replay(srcs_t, lens_t, declens_t, d_pad)
-    with _span("d2h"):
-        return dst, gerrs.cpu().numpy(), declens_t
+            dst, gerrs = decode_replay(srcs_t, lens_t, declens_t, d_pad)
+        with _span("d2h"):
+            got = dst, gerrs.cpu().numpy()
+        route = "replay"
+    if routes is not None:
+        routes.append((len(declens), d_pad, route))
+    return (*got, declens_t)
 
 
 def decompress_streams(

@@ -1,0 +1,303 @@
+"""Copy-chain resolution on the card from the host's op records: kernels K8
+and K9 (``csrc/resolve.cu``).
+
+The port of the JAX package's ``ops/resolve.py``. The host contributes only
+the O(records) validated op scan (``native.scan_records_batch``): one packed
+``(len, payload)`` int32 pair per op. Everything per byte happens on the
+card:
+
+1. each byte's first hop: ``FLAG + content + j`` for the ``j``-th byte of a
+   literal (resolved: an absolute source index, biased by :data:`FLAG`), or
+   ``start - off + (j mod off)`` for a copy (an earlier output position;
+   ``j mod off`` covers overlapping copies, whose period is the offset);
+2. pointer jumping until every byte carries ``FLAG``: K8 (:func:`resolve_fh`)
+   builds the first hops itself from the records, K9 (:func:`resolve`) reads
+   them from the plane :func:`records_to_pointers` makes;
+3. :func:`idx_to_v2_inputs`: the resolved plane to the flat gather's inputs,
+   the C++ flatten's window choice bit for bit, and K2 (``layout=1``) emits
+   the bytes.
+
+The host scan validates in lockstep with the replay kernel (same checks,
+order and codes), so the route reproduces the replay decode's bytes and
+error codes; records cover the valid prefix only.
+
+Each wrapper launches its kernel on a CUDA tensor (or raises) and runs its
+plain version on a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import _build
+from .decode_flat import decode_flat
+from .encode_flat import _no_span
+
+#: Resolution flag: values ``>= FLAG`` are final absolute source indices
+#: (biased by ``FLAG``). Source rows of the route are at most 64 KiB, so
+#: source indices fit 17 bits.
+FLAG = 1 << 17
+
+#: Gather rounds per 1024-byte tile after its first hops: the JAX package's
+#: one first round plus ``_MAX_PASSES`` (11). Jacobi doubling covers 2^12
+#: hops by then, past the 1024 a tile can chain.
+MAX_ROUNDS = 12
+
+#: Kernel launches since the counts were last reset, per kernel.
+launches = {"resolve_fh": 0, "resolve": 0}
+
+
+def _fields(recs, nops):
+    """Per-record ``(valid, ln, starts, payload)``, all ``(B, CAP)`` int64;
+    ``payload = islit << 17 | (w1 & 0x1FFFF)``, and records at and past
+    ``nops`` count as empty copies."""
+    cap = recs.shape[1]
+    w0 = recs[:, :, 0].to(torch.int64)
+    valid = torch.arange(cap, device=recs.device)[None, :] < nops.to(torch.int64)[:, None]
+    islit = torch.where(valid, (w0 >> 30) & 1, 0)
+    ln = torch.where(valid, w0 & 0x3FFFFFFF, 0)
+    starts = torch.cumsum(ln, dim=1) - ln
+    payload = (islit << 17) | (recs[:, :, 1].to(torch.int64) & 0x1FFFF)
+    return valid, ln, starts, payload
+
+
+def _first_hops(start, payload, d, declens):
+    """First hop of every byte ``d`` from its covering record's ``start`` and
+    ``payload`` (``islit << 17 | w1``); ``FLAG`` at and past ``declen``."""
+    islit = payload >> 17
+    w1 = payload & 0x1FFFF
+    j = d - start
+    off = w1.clamp(min=1)
+    jj = torch.where(j < off, j, j % off)
+    hop = torch.where(islit == 1, FLAG + w1 + j, start - off + jj)
+    live = d < declens.to(torch.int64)[:, None]
+    return torch.where(live, hop, FLAG)
+
+
+def records_to_pointers(recs, nops, declens, d_pad: int):
+    """Op records to the first-hop plane ``a0`` (``(B, d_pad)`` int32).
+
+    ``recs``: ``(B, CAP, 2)`` int32 from ``native.scan_records_batch``
+    (``w0 = len | literal << 30``; ``w1`` the content index of a literal or
+    the offset of a copy); records at and past ``nops`` are ignored. The
+    covering record's fields reach its bytes by a scatter of packed keys at
+    each record's start and a running max (keys rise with the starts), as
+    ``snappy_tpu/ops/resolve.py`` does; a byte no record covers decodes its
+    all-ones key. The JAX function's ``rmeta`` (matrix-unit gather windows)
+    has no use here.
+    """
+    if d_pad > 1 << 16:
+        raise ValueError(f"d_pad {d_pad}: the route packs positions in 16 bits")
+    b = recs.shape[0]
+    valid, ln, starts, payload = _fields(recs, nops)
+    pos = torch.where(valid & (ln > 0), starts, d_pad)
+    keys = []
+    for key in ((starts << 15) | (payload & 0x7FFF), (starts << 3) | (payload >> 15)):
+        z = torch.full((b, d_pad + 1), -1, dtype=torch.int64, device=recs.device)
+        z.scatter_reduce_(1, pos, key, reduce="amax")
+        keys.append(torch.cummax(z[:, :d_pad], dim=1).values)
+    zlo, zhi = keys
+    d = torch.arange(d_pad, device=recs.device)[None, :]
+    pay = ((zhi & 0x7) << 15) | (zlo & 0x7FFF)
+    return _first_hops(zlo >> 15, pay, d, declens).to(torch.int32)
+
+
+def records_to_kernel_inputs(recs, nops, declens, d_pad: int):
+    """Record-scale inputs of K8: ``(startsx, payload)``, both ``(B, CAP)``
+    int32. ``startsx`` holds each record's exclusive start, and ``declen``
+    for the records at and past ``nops`` (they never cover a live byte);
+    ``payload`` is ``islit << 17 | (w1 & 0x1FFFF)``. The JAX function's f32
+    record planes and windows exist for a kernel with no gather and are not
+    made here.
+    """
+    if d_pad > 1 << 16:
+        raise ValueError(f"d_pad {d_pad}: the route packs positions in 16 bits")
+    valid, _, starts, payload = _fields(recs, nops)
+    startsx = torch.where(valid, starts, declens.to(torch.int64)[:, None])
+    return startsx.to(torch.int32), payload.to(torch.int32)
+
+
+def resolve_reference(a0, max_rounds: int | None = None):
+    """Jacobi pointer doubling over whole rows (the oracle, and the plain
+    version of K9): each round replaces every unresolved pointer with its
+    target's value, targets clipped to the row, until every value of the
+    batch is ``>= FLAG`` or ``max_rounds`` (default ``ceil(log2(d_pad))``)
+    have run."""
+    d_pad = a0.shape[1]
+    rounds = max_rounds or max(1, (d_pad - 1).bit_length())
+    a = a0
+    for _ in range(rounds):
+        g = a.gather(1, a.clamp(0, d_pad - 1).to(torch.int64))
+        a = torch.where(a >= FLAG, a, g)
+        if bool((a >= FLAG).all()):
+            break
+    return a
+
+
+def resolve_fh_plain(startsx, payload, declens, d_pad: int):
+    """K8's plain version: each byte's covering record by ``searchsorted``
+    (the last record whose start is at or before it), its first hop, then
+    :func:`resolve_reference`; ``FLAG`` past ``declen``. A byte no record
+    covers gets hop ``-1`` (start 0, payload 0: a copy of offset 1), which
+    never resolves, as in the JAX package's fused kernel."""
+    d = torch.arange(d_pad, device=startsx.device).expand(startsx.shape[0], d_pad)
+    sx = startsx.to(torch.int64).contiguous()
+    r = torch.searchsorted(sx, d.contiguous(), right=True) - 1
+    rc = r.clamp(min=0)
+    covered = r >= 0
+    start = torch.where(covered, sx.gather(1, rc), 0)
+    pay = torch.where(covered, payload.to(torch.int64).gather(1, rc), 0)
+    a0 = _first_hops(start, pay, d, declens).to(torch.int32)
+    return resolve_reference(a0)
+
+
+@functools.cache
+def _kernels():
+    lib = _build.kernel_lib("resolve")
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    fh = lib.stpu_cuda_resolve_fh
+    fh.argtypes = [p, p, i64, i64, p, i64, ctypes.c_int, p, p]
+    fh.restype = ctypes.c_int
+    rs = lib.stpu_cuda_resolve
+    rs.argtypes = [p, i64, i64, ctypes.c_int, p, p]
+    rs.restype = ctypes.c_int
+    return fh, rs
+
+
+def _check_plane_inputs(tensors, d_pad: int):
+    if any(t.dtype != torch.int32 for t in tensors):
+        raise TypeError("inputs must be int32")
+    if d_pad <= 0 or d_pad % 1024 or d_pad > 1 << 16:
+        raise ValueError(f"d_pad {d_pad} must be whole 1024-byte tiles up to 64 KiB")
+    if any(t.device != tensors[0].device for t in tensors):
+        raise ValueError("all inputs must be on one device")
+    dev = tensors[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and not all(t.is_contiguous() for t in tensors):
+        raise ValueError("inputs must be contiguous")
+
+
+def resolve_fh(startsx, payload, declens, d_pad: int):
+    """K8: records to the resolved plane ``(B, d_pad)`` int32, every live
+    byte ``FLAG + src`` (or left ``< FLAG`` where its chain did not resolve)
+    and ``FLAG`` past ``declen``. Inputs from :func:`records_to_kernel_inputs`
+    and ``declens`` ``(B,)`` int32."""
+    b, cap = startsx.shape
+    _check_plane_inputs((startsx, payload, declens), d_pad)
+    if payload.shape != (b, cap) or declens.shape != (b,):
+        raise ValueError("payload and declens do not match startsx")
+    if startsx.device.type == "cpu":
+        return resolve_fh_plain(startsx, payload, declens, d_pad)
+    out = torch.empty((b, d_pad), dtype=torch.int32, device=startsx.device)
+    if b == 0:
+        return out
+    if b > 65535 or cap == 0:
+        raise ValueError(f"{b} rows of {cap} records do not fit one launch")
+    launches["resolve_fh"] += 1
+    _build.check(
+        _kernels()[0](
+            startsx.data_ptr(), payload.data_ptr(), b, cap, declens.data_ptr(), d_pad,
+            MAX_ROUNDS, out.data_ptr(), torch.cuda.current_stream(startsx.device).cuda_stream,
+        ),
+        "resolve_fh",
+    )
+    return out
+
+
+def resolve(a0):
+    """K9: resolve every pointer of the first-hop plane ``a0`` ``(B, d_pad)``
+    int32 (from :func:`records_to_pointers`) to ``FLAG + src``. Its plain
+    version is :func:`resolve_reference`."""
+    b, d_pad = a0.shape
+    _check_plane_inputs((a0,), d_pad)
+    if a0.device.type == "cpu":
+        return resolve_reference(a0)
+    out = torch.empty_like(a0)
+    if b == 0:
+        return out
+    if b > 65535:
+        raise ValueError(f"{b} rows exceed one launch's grid")
+    launches["resolve"] += 1
+    _build.check(
+        _kernels()[1](
+            a0.data_ptr(), b, d_pad, MAX_ROUNDS, out.data_ptr(),
+            torch.cuda.current_stream(a0.device).cuda_stream,
+        ),
+        "resolve",
+    )
+    return out
+
+
+def idx_to_v2_inputs(a, declens, d_pad: int, s_rows: int):
+    """Resolved plane to the flat gather's inputs, as the C++ flatten
+    (``core.cpp`` ``stpu_flatten_idx``) chooses them: per 1024-byte tile the
+    narrowest window of 512, 256 or 128 rows of 128 bytes (tried wide to
+    narrow; each base clamped to ``s_rows - min(w, s_rows)`` and rounded
+    down to 8 rows, the fit tested against the nominal ``w``) that holds
+    the tile's source indices. Returns ``(idx (B, d_pad) int16``: uint16
+    indices relative to the tile's base, in ``layout=1`` order;
+    ``tile_meta (B, d_pad // 1024, 2)`` int32 ``[base row, bucket]``;
+    ``fallback (B,)`` int32, set where a tile fits no window)."""
+    b = a.shape[0]
+    nt = d_pad // 1024
+    d = torch.arange(d_pad, device=a.device)[None, :]
+    live = (d < declens.to(torch.int64)[:, None]).reshape(b, nt, 1024)
+    iv = torch.where(live, (a.to(torch.int64) - FLAG).reshape(b, nt, 1024), 0)
+    any_live = live.any(dim=2)
+    mn = torch.where(live, iv, 1 << 30).amin(dim=2)
+    mx = torch.where(live, iv, 0).amax(dim=2)
+    mn = torch.where(any_live, mn, 0)
+    min_row = torch.div(mn, 128, rounding_mode="floor")
+    bucket = torch.full((b, nt), -1, dtype=torch.int64, device=a.device)
+    base = torch.zeros((b, nt), dtype=torch.int64, device=a.device)
+    for wi, w in ((2, 512), (1, 256), (0, 128)):
+        cand = min_row.clamp(max=s_rows - min(w, s_rows)).clamp(min=0) & ~7
+        ok = mx - cand * 128 < w * 128
+        bucket = torch.where(ok, wi, bucket)
+        base = torch.where(ok, cand, base)
+    fallback = (bucket < 0).any(dim=1).to(torch.int32)
+    bucket = torch.where(bucket < 0, 2, bucket)
+    tile_meta = torch.stack([base, bucket], dim=2).to(torch.int32)
+    rel = torch.where(live, iv - base[:, :, None] * 128, 0) & 0xFFFF
+    rel = ((rel ^ 0x8000) - 0x8000).to(torch.int16).reshape(b, d_pad)
+    # The v2 kernel's transposed block order (decode_flat.phys_index).
+    idx = rel.reshape(b, d_pad // 16384, 16, 8, 128).permute(0, 1, 4, 2, 3).reshape(b, d_pad)
+    return idx.contiguous(), tile_meta, fallback
+
+
+def decode_resolve_batch(srcs, recs, nops, declens, d_pad: int, use_fused: bool = True,
+                         span=_no_span):
+    """Decode a launch group from its op records: resolve, then K2.
+
+    ``srcs``: ``(B, S)`` uint8 zero-padded bodies (``S % 128 == 0``, at most
+    64 KiB); ``recs``, ``nops``: the scan's records ``(B, CAP, 2)`` int32
+    and op counts ``(B,)`` int32 (every ``nops <= CAP``: the caller routes
+    overflowing groups away); ``declens`` ``(B,)`` int32; ``d_pad`` whole
+    16 KiB up to 64 KiB. ``use_fused`` takes K8 (first hops in the kernel)
+    over ``records_to_pointers`` and K9. Returns ``(out (B, d_pad) uint8,
+    fallback (B,) int32)``: a row with ``fallback`` set has a tile that fits
+    no gather window or a chain left unresolved, and its bytes are not
+    valid. ``span(name, dev)`` (``ops.api._span``) times the torch ops as
+    ``plan`` and the kernels as ``kernels``.
+    """
+    if d_pad % 16384:
+        raise ValueError(f"d_pad {d_pad} is not whole 16 KiB groups")
+    dev = srcs.device
+    with span("plan", dev):
+        if use_fused:
+            startsx, payload = records_to_kernel_inputs(recs, nops, declens, d_pad)
+        else:
+            a0 = records_to_pointers(recs, nops, declens, d_pad)
+    with span("kernels", dev):
+        a = resolve_fh(startsx, payload, declens, d_pad) if use_fused else resolve(a0)
+    with span("plan", dev):
+        idx, tile_meta, fallback = idx_to_v2_inputs(a, declens, d_pad, srcs.shape[1] // 128)
+        # A chain left unresolved by the round budget must not ship.
+        fallback = fallback | (a < FLAG).any(dim=1).to(torch.int32)
+    with span("kernels", dev):
+        out = decode_flat(srcs, idx, tile_meta, declens, d_pad, 1)
+    return out, fallback

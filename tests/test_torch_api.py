@@ -163,14 +163,16 @@ def test_config_from_reference_maps_the_shared_caps():
     ref_cfg = jconfig.Config(
         decode_rows_per_launch=7, max_device_stream=1 << 20, max_device_output=1 << 21,
         pallas_max_dpad=1 << 14, replay_max_body=1 << 12, threads=3, debug=True,
-        pallas_fastpath="compose",
+        pallas_fastpath="compose", pallas_records=True, pallas_resolve=True,
     )
     cfg = config_from_reference(dataclasses.asdict(ref_cfg))
     assert cfg == Config(
         device="cuda", decode_rows_per_launch=7, max_device_stream=1 << 20,
         max_device_output=1 << 21, max_dpad=1 << 14, replay_max_body=1 << 12,
-        threads=3, debug=True,
+        threads=3, debug=True, decode_records=True, decode_resolve=True,
     )
+    default = config_from_reference(dataclasses.asdict(jconfig.Config()))
+    assert not default.decode_records and not default.decode_resolve
 
 
 def test_routing_caps_send_wide_streams_to_the_host(monkeypatch):

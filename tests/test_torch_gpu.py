@@ -18,9 +18,12 @@ from snappy_tpu_torch import native
 from snappy_tpu_torch.format import reference as ref
 from snappy_tpu_torch.format.varint import read_varu64, write_varu64
 from snappy_tpu_torch.ops import (
-    api, crc32c, decode_flat, emit, encode, encode_flat, packing, parse, replay,
+    api, crc32c, decode_flat, emit, encode, encode_flat, packing, parse, records, replay,
+    resolve,
 )
-from torch_vectors import CORRUPT, fallback_row, overlap_rows
+from torch_vectors import (
+    CORRUPT, fallback_row, overlap_rows, raw_body, resolve_cases, scan_batch,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -238,6 +241,93 @@ def test_entry_points_on_the_card(dev):
     bad[len(bad) // 2] ^= 0x5A
     with pytest.raises(Exception) as got:
         api.decompress_frame(bytes(bad))
+    with pytest.raises(Exception) as want:
+        native.frame_decompress(bytes(bad))
+    assert type(got.value) is type(want.value) and str(got.value) == str(want.value)
+
+
+def _on(dev, *arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+
+
+def test_resolve_kernels_match_plain(dev):
+    """K8 and K9 against their plain versions on the JAX package's resolve
+    cases and two rows the scan cut short (one with no record at all):
+    whole planes where the rows resolve, the unresolved flag everywhere.
+    Then the route's bytes against the data."""
+    cases = resolve_cases()
+    rows = [raw_body(c) for c in cases] + [(b"\x61", 3), (b"\x00a\x1d\x01", 5)]
+    srcs, _, declens, recs, nops, _ = scan_batch(rows)
+    s_t, r_t, n_t, d_t = _on(dev, srcs, recs, nops.astype(np.int32), declens)
+    d_pad = 1 << 16
+    startsx, payload = resolve.records_to_kernel_inputs(r_t, n_t, d_t, d_pad)
+    a0 = resolve.records_to_pointers(r_t, n_t, d_t, d_pad)
+    before = dict(resolve.launches)
+    got = {"resolve_fh": resolve.resolve_fh(startsx, payload, d_t, d_pad), "resolve": resolve.resolve(a0)}
+    torch.cuda.synchronize()
+    assert {k: resolve.launches[k] - before[k] for k in before} == {"resolve_fh": 1, "resolve": 1}
+    want = {"resolve_fh": resolve.resolve_fh_plain(startsx, payload, d_t, d_pad),
+            "resolve": resolve.resolve_reference(a0)}
+    for name in got:
+        g, w = got[name], want[name]
+        flags = (g < resolve.FLAG).any(dim=1)
+        assert torch.equal(flags, (w < resolve.FLAG).any(dim=1)), name
+        assert torch.equal(g[~flags], w[~flags]), name
+    assert (got["resolve_fh"] < resolve.FLAG).any(dim=1).tolist() == [False] * (len(rows) - 2) + [True, False]
+    for fused in (True, False):
+        out, fb = resolve.decode_resolve_batch(s_t, r_t, n_t, d_t, d_pad, use_fused=fused)
+        host = out.cpu().numpy()
+        assert fb.tolist() == [0] * len(cases) + [1, 0]
+        for i, c in enumerate(cases):
+            assert host[i, : len(c)].tobytes() == c and not host[i, len(c):].any()
+        assert host[-1, :5].tolist() == [97, 29, 1, 0, 0]
+
+
+def test_records_kernel_matches_plain(dev):
+    """K10 against its plain version: corrupt rows (their valid prefix),
+    overlapping copies and corpus chunks, with the output staged in shared
+    memory (64 KiB) and worked in device memory (256 KiB)."""
+    rows = CORRUPT + overlap_rows((1, 3, 31, 32, 33, 127, 128, 129, 255), copies=20)
+    rows += [raw_body(c) for c in CHUNKS]
+    srcs, _, declens, recs, nops, errs = scan_batch(rows, 16384)
+    a = _on(dev, srcs, recs, nops.astype(np.int32), declens)
+    for d_pad in (1 << 16, 1 << 18):
+        before = records.launches
+        got = records.decode_records(*a, d_pad)
+        torch.cuda.synchronize()
+        assert records.launches == before + 1
+        assert torch.equal(got, records.decode_records_plain(*a, d_pad))
+    host = got.cpu().numpy()
+    for i, c in enumerate(CHUNKS):
+        j = len(rows) - len(CHUNKS) + i
+        assert host[j, : len(c)].tobytes() == c and not host[j, len(c):].any()
+    assert (errs[: len(CORRUPT)] > 0).all()
+
+
+@pytest.mark.parametrize("route", ["decode_resolve", "decode_records"])
+def test_record_scan_routes_on_the_card(dev, route):
+    from snappy_tpu_torch.config import configure
+
+    data = (load_corpus("alice29.txt") + load_corpus("fireworks.jpeg")) * 2 + b"tail" * 1000
+    stream = native.frame_compress(data)
+    for m in (crc32c, decode_flat, replay, records):
+        m.launches = 0
+    decode_flat.layout_launches[:] = [0, 0]
+    for k in resolve.launches:
+        resolve.launches[k] = 0
+    with configure(**{route: True}):
+        assert api.decompress_frame(stream) == data
+        assert crc32c.launches >= 1 and replay.launches == 0 and resolve.launches["resolve"] == 0
+        if route == "decode_resolve":
+            assert resolve.launches["resolve_fh"] >= 1 and records.launches == 0
+            assert decode_flat.layout_launches[1] == resolve.launches["resolve_fh"]
+        else:
+            assert records.launches >= 1 and decode_flat.launches == 0
+            assert resolve.launches["resolve_fh"] == 0
+        bad = bytearray(stream)
+        bad[len(bad) // 2] ^= 0x5A
+        with pytest.raises(Exception) as got:
+            api.decompress_frame(bytes(bad))
     with pytest.raises(Exception) as want:
         native.frame_decompress(bytes(bad))
     assert type(got.value) is type(want.value) and str(got.value) == str(want.value)

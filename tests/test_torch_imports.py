@@ -34,7 +34,9 @@ PORT_MODULES = [
     "snappy_tpu_torch.ops.frame",
     "snappy_tpu_torch.ops.packing",
     "snappy_tpu_torch.ops.parse",
+    "snappy_tpu_torch.ops.records",
     "snappy_tpu_torch.ops.replay",
+    "snappy_tpu_torch.ops.resolve",
     "snappy_tpu_torch.raw",
     "snappy_tpu_torch.read",
     "snappy_tpu_torch.write",
@@ -135,6 +137,38 @@ def test_cuda_tensor_without_a_card_does_not_fall_back():
     lens = torch.zeros(1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         crc32c.crc32c_masked_blocks(rows, lens)
+
+
+@pytest.mark.parametrize("kernel", ["resolve_fh", "resolve", "decode_records"])
+def test_new_kernel_wrappers_do_not_fall_back(kernel):
+    """K8, K9 and K10 take their plain versions only for CPU tensors: a
+    tensor on another device is refused, not decoded on the CPU."""
+    from snappy_tpu_torch.ops import records, resolve
+
+    def t(shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device="meta")
+
+    call = {
+        "resolve_fh": lambda: resolve.resolve_fh(t((1, 512)), t((1, 512)), t(1), 1024),
+        "resolve": lambda: resolve.resolve(t((1, 1024))),
+        "decode_records": lambda: records.decode_records(
+            t((1, 128), torch.uint8), t((1, 512, 2)), t(1), t(1), 1024),
+    }[kernel]
+    with pytest.raises(ValueError, match="unsupported device"):
+        call()
+
+
+@pytest.mark.parametrize("route", ["decode_records", "decode_resolve"])
+def test_record_scan_routes_without_a_card_raise(route, monkeypatch):
+    import snappy_tpu_torch
+    from snappy_tpu_torch import native
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    stream = native.frame_compress(BIG)
+    with snappy_tpu_torch.configure(**{route: True}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            snappy_tpu_torch.decompress_frame(stream)
+        assert snappy_tpu_torch.decompress_frame(stream, device="cpu") == BIG
 
 
 def test_public_surface():

@@ -62,7 +62,7 @@ CORRUPT = [
     (b"\x00a\x3f\x00", 17),  # CopyRead
     (b"\x00a\x01\x00", 17),  # offset zero
     (b"\x00a\x01\xFF", 17),  # offset too big
-    (b"\x61", 3),  # literal overrun
+    (b"\x61", 3),  # copy1 truncated (no record at all)
     (b"\xff\xff\xff\xff", 4),  # copy4 truncated
     (b"\xf0" + b"a" * 10, 4),  # long literal, declen short
     (b"\x00a", 4),  # ends early: header mismatch
@@ -108,3 +108,48 @@ def overlap_rows(offsets=(1, 3, 31, 32, 33, 127, 128, 129), copies=5):
         body += copy2(off, 64) * copies + copy2(off, 7)
         rows.append((body, off + 64 * copies + 7))
     return rows
+
+
+def resolve_cases() -> list[bytes]:
+    """The contents of the JAX package's chain-resolution tests
+    (``tests/test_resolve.py``): corpus blocks with deep chains, offset-1
+    and periodic overlaps, random bytes of two alphabets, one byte."""
+    rng = np.random.default_rng(11)
+    data = REPO / "data"
+    return [
+        (data / "html").read_bytes()[:65536],
+        (data / "kppkn.gtb").read_bytes()[:65536],  # the deepest chains
+        bytes(65536),  # offset-1 runs
+        bytes([1, 2, 3]) * 21845,  # a periodic overlap
+        rng.integers(0, 4, 65536, dtype=np.uint8).tobytes(),
+        rng.integers(0, 256, 777, dtype=np.uint8).tobytes(),
+        b"x",
+    ]
+
+
+def scan_batch(rows, rec_cap: int = 1 << 14):
+    """``[(body, declen)]`` zero-padded to whole 128-byte rows and scanned
+    into op records by the port's host runtime. Returns ``(srcs, lens,
+    declens, recs, nops, errs)`` as numpy arrays (``lens``/``declens``
+    int32)."""
+    from snappy_tpu_torch import native
+
+    width = -(-max(len(b) for b, _ in rows) // 128) * 128
+    srcs = np.zeros((len(rows), width), np.uint8)
+    for i, (b, _) in enumerate(rows):
+        srcs[i, : len(b)] = np.frombuffer(b, np.uint8)
+    lens = np.asarray([len(b) for b, _ in rows], np.int32)
+    declens = np.asarray([d for _, d in rows], np.int32)
+    recs, nops, errs, _ = native.scan_records_batch(
+        srcs, lens.astype(np.uint64), declens.astype(np.uint64), rec_cap
+    )
+    return srcs, lens, declens, recs, nops, errs
+
+
+def raw_body(data: bytes) -> tuple[bytes, int]:
+    """``(body without its varint, len(data))`` of the host codec's stream."""
+    from snappy_tpu_torch import native
+    from snappy_tpu_torch.format.varint import read_varu64
+
+    c = native.compress(data)
+    return c[read_varu64(c)[1]:], len(data)
