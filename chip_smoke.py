@@ -32,17 +32,33 @@ card. Phases:
    the flat route) and under ``configure(decode_records=True)`` (K10 on
    every group, K3 only for a group whose records overflow the scan's
    cap), the reader under the latter; the route each launch group took
-   is printed. The frame, fast, exact, writer and both route paths are then
-   timed end to end, and again with ``ops.api.spans`` on for the
-   breakdown of that same run; every corpus file compressed alone with
-   the fast profile must be no larger than the host codec's stream; a
-   corrupted frame stream must raise what the host engine raises.
+   is printed. It is decoded once more by each tensor route, with no
+   kernel but K1: under ``configure(decode_kernels=False)`` (the host's
+   op-start bitmaps) and under ``configure(pure_device=True)`` (op
+   discovery on the card). The frame, fast, exact, writer, both
+   record-scan and both tensor route paths are then timed end to end, and
+   again with ``ops.api.spans`` on for the breakdown of that same run;
+   every corpus file compressed alone with the fast profile must be no
+   larger than the host codec's stream; two corrupted frame streams must
+   raise what the host engine raises, on every decode route;
+4. the CLI: ``python -m snappy_tpu_torch.cli.szip --engine device`` in
+   processes of its own compresses a corpus file (``-k``), decompresses it
+   (``-d``) and round-trips it with ``--raw``; ``cmp`` holds each file to
+   the original and to the host codec's.
 
 K8 and K9 (chain resolution) and K10 (record replay) are held against
 their plain versions on the frame's largest launch group (455 rows,
 ``d_pad`` 65536) as the host's record scan leaves it, and K9's path
 (``decode_resolve_batch(use_fused=False)``) must give the host codec's
 bytes there.
+
+K11 (the grouped flat gather, the JAX package's v3/v4 entry, which no
+library path calls) is held on the same 455-row group, with the host
+flatten's indices as K2 gets them and ``group_buckets``' buckets, against
+its plain version, K2's bytes and the host codec's; and against its plain
+version on hand-made buckets and on a batch of 2 KiB rows. Its own entry
+path decodes every launch group of whole 16 KiB groups through v3 and v4,
+as the JAX package's tools call it.
 
 K7, the exact encoder, is held against its plain version (a Python loop
 of small launches per automaton step) on 8 corpus blocks and timed on the
@@ -319,6 +335,68 @@ def main() -> int:
             "library_ms": cuda_ms(lambda: torch.gather(padded, 1, absidx_t), 50),
         })
         check(equal, f"K2 flat gather layout {layout} differs from its plain version")
+        if layout == 1:
+            big_k2 = (a, got, expect, padded, absidx_t, nbytes + 4 * len(g) * (d_pad // 16384))
+
+    # -- K11 grouped flat gather (v3, v4) on the frame's largest group, as K2 gets it ----
+    # With group_buckets' buckets it must give K2's bytes and the host codec's;
+    # a hand-made bucket plane (a live group marked dead, a 3: zeros for v3, the
+    # wide window for v4, and every wider group cut to the narrow window) and a
+    # batch of 2 KiB rows (s_rows 16, under every window) are held against the
+    # plain version. The bound and the torch.gather yardstick are K2's, plus the
+    # bucket plane.
+    a, k2_out, expect, padded, absidx_t, nbytes = big_k2
+    d_pad = a[1].shape[1]
+    gbuck = decode_flat.group_buckets(a[2], a[3], d_pad)
+    hand = gbuck.clone()
+    hand[gbuck > 0] = 0
+    hand[0, 0], hand[1, 1] = -1, 3
+    narrow_rows = [b"z" * 30000, (b"pattern!" * 4000)[:32000]]
+    n_srcs, n_lens = packing.batch_streams(
+        [c[read_varu64(c)[1]:] for c in map(native.compress, narrow_rows)], 2048)
+    n_decl = np.asarray([len(r) for r in narrow_rows], np.int32)
+    n_idx, n_meta, n_fb, n_err, _ = native.flatten_idx_batch(
+        n_srcs, n_lens.astype(np.uint64), n_decl.astype(np.uint64), 32768, layout=1)
+    check(not n_fb.any() and not n_err.any(), "flatten rejected a narrow row")
+    narrow = [torch.from_numpy(x).to(dev) for x in (n_srcs, n_idx.view(np.int16), n_meta)]
+    n_decl_t = torch.from_numpy(n_decl).to(dev)
+    narrow += [decode_flat.group_buckets(narrow[2], n_decl_t, 32768), n_decl_t]
+    report["grouped"] = {"gbuck_histogram": torch.bincount(gbuck.flatten().long() + 1).tolist(),
+                         "hand_made_differs": None}
+    bnd, by = bound_ms(nbytes)
+    for variant in (3, 4):
+        got = decode_flat.decode_flat_grouped(*a[:3], gbuck, a[3], d_pad, variant)
+        want = decode_flat.decode_flat_grouped_plain(*a[:3], gbuck, a[3], d_pad, variant)
+        got_h = decode_flat.decode_flat_grouped(*a[:3], hand, a[3], d_pad, variant)
+        want_h = decode_flat.decode_flat_grouped_plain(*a[:3], hand, a[3], d_pad, variant)
+        got_n = decode_flat.decode_flat_grouped(*narrow, 32768, variant)
+        want_n = decode_flat.decode_flat_grouped_plain(*narrow, 32768, variant)
+        host_n = got_n.cpu().numpy()
+        equal = (torch.equal(got, want) and torch.equal(got, k2_out)
+                 and bool((got.cpu().numpy() == expect).all()) and torch.equal(got_h, want_h)
+                 and torch.equal(got_n, want_n)
+                 and all(host_n[i, : len(r)].tobytes() == r for i, r in enumerate(narrow_rows)))
+        report["grouped"]["hand_made_differs"] = not torch.equal(got_h, got)
+        kernels.append({
+            "name": f"flat_grouped[v{variant}]", "route": "cuda",
+            "source": "snappy_tpu_torch/csrc/flat_grouped.cu",
+            "replaces": "snappy_tpu/ops/pallas/decode.py:" + (
+                "1248 decode_flat_pallas_v3" if variant == 3 else "1166 decode_flat_pallas_v4"),
+            "shape": [a[0].shape[0], a[0].shape[1], d_pad], "equal": equal,
+            "max_abs_err": max(max_abs_err(got, want), max_abs_err(got, k2_out),
+                               max_abs_err(got_h, want_h), max_abs_err(got_n, want_n)),
+            "ms": cuda_ms(lambda: decode_flat.decode_flat_grouped(
+                *a[:3], gbuck, a[3], d_pad, variant), 50),
+            "plain_ms": cuda_ms(lambda: decode_flat.decode_flat_grouped_plain(
+                *a[:3], gbuck, a[3], d_pad, variant), 5),
+            "bound_ms": bnd, "bound_by": by,
+            "library_ms": cuda_ms(lambda: torch.gather(padded, 1, absidx_t), 50),
+            "k2_ms_same_call": cuda_ms(lambda: decode_flat.decode_flat(*a, d_pad, 1), 50),
+        })
+        check(equal, f"K11 v{variant} differs from its plain version, K2 or the host codec")
+    check(report["grouped"]["hand_made_differs"], "the hand-made buckets changed no byte")
+    print(f"K11: bucket histogram (-1, 0, 1, 2) {report['grouped']['gbuck_histogram']}")
+    del big_k2, a, k2_out, expect, padded, absidx_t, narrow, got, want, got_h, want_h
 
     # -- K3 replay ----------------------------------------------------------------------
     def replay_case(rows_bodies, declens, width=None):
@@ -582,6 +660,8 @@ def main() -> int:
         return {"crc32c": crc32c.launches, "replay": replay.launches,
                 "flat_gather[layout=0]": decode_flat.layout_launches[0],
                 "flat_gather[layout=1]": decode_flat.layout_launches[1],
+                "flat_grouped[v3]": decode_flat.grouped_launches[3],
+                "flat_grouped[v4]": decode_flat.grouped_launches[4],
                 "parse": parse.launches, "encode": encode.launches, **emit.entry_launches,
                 **resolve.launches, "records": records.launches}
 
@@ -589,7 +669,7 @@ def main() -> int:
         for m in (crc32c, decode_flat, replay, parse, encode, records):
             m.launches = 0
         decode_flat.layout_launches[:] = [0, 0]
-        for d in (emit.entry_launches, resolve.launches):
+        for d in (emit.entry_launches, resolve.launches, decode_flat.grouped_launches):
             for k in d:
                 d[k] = 0
 
@@ -605,6 +685,34 @@ def main() -> int:
         w.write(data)
         w.flush()
         return out.getvalue()
+
+    def grouped_entry():
+        """The v3/v4 entry as the JAX package's tools drive it (no library
+        route does): every launch group of whole 16 KiB groups flattened on
+        the host, bucketed, and decoded by K11 v3 and v4 on the card. Returns
+        each decoded chunk's bytes by chunk index."""
+        out = {}
+        for g in groups:
+            srcs, glens, gd, d_pad = group_inputs(g)
+            if d_pad % 16384:
+                continue
+            idx, tmeta, fallb, _, _ = native.flatten_idx_batch(
+                srcs, glens.astype(np.uint64), np.asarray(gd, np.uint64), d_pad, layout=1)
+            check(not fallb.any(), "flatten rejected a corpus chunk")
+            t = [torch.from_numpy(x).to(dev) for x in (srcs, idx.view(np.int16), tmeta)]
+            d_t = torch.from_numpy(np.asarray(gd, np.int32)).to(dev)
+            gb = decode_flat.group_buckets(t[2], d_t, d_pad)
+            v3 = decode_flat.decode_flat_grouped(*t, gb, d_t, d_pad, 3)
+            v4 = decode_flat.decode_flat_grouped(*t, gb, d_t, d_pad, 4)
+            check(torch.equal(v3, v4), "K11 v3 and v4 differ on a launch group")
+            rows = v3.cpu().numpy()
+            out.update((i, rows[j, : gd[j]].tobytes()) for j, i in enumerate(g))
+        return out
+
+    def chunk_bytes(decoded):
+        want = native.decompress_batch(
+            [write_varu64(chunks[i][1]) + bodies[i] for i in sorted(decoded)])
+        return list(want) == [decoded[i] for i in sorted(decoded)] and len(decoded) > 0
 
     host_raw = native.compress(data)
     runs = {
@@ -622,6 +730,11 @@ def main() -> int:
                                 decode_records=True), lambda out: out == data),
         "reader_records": (under(lambda: read.FrameDecoder(io.BytesIO(frame), engine="device")
                                  .read(), decode_records=True), lambda out: out == data),
+        "frame_hosted": (under(lambda: snappy_tpu_torch.decompress_frame(frame),
+                               decode_kernels=False), lambda out: out == data),
+        "frame_parallel": (under(lambda: snappy_tpu_torch.decompress_frame(frame),
+                                 pure_device=True), lambda out: out == data),
+        "grouped": (grouped_entry, chunk_bytes),
     }
     by_path, t_cold, results, group_routes = {}, {}, {}, {}
     for path, (fn, ok) in runs.items():
@@ -641,6 +754,20 @@ def main() -> int:
     fr, rw, cp = by_path["frame"], by_path["raw"], by_path["compress"]
     encode_names = ("parse", "fused_emit", "shift_idx", "emit_bytes", "encode")
     scan_names = ("resolve_fh", "resolve", "records")
+    grouped_names = ("flat_grouped[v3]", "flat_grouped[v4]")
+    for path, c in by_path.items():
+        check(path == "grouped" or not any(c[k] for k in grouped_names),
+              f"K11 ran on the library's {path} path: {c}")
+    c = by_path["grouped"]
+    check(c["flat_grouped[v3]"] >= 1 and c["flat_grouped[v3]"] == c["flat_grouped[v4]"]
+          and not any(v for k, v in c.items() if k not in grouped_names),
+          f"K11 on its entry's path: {c}")
+    for path, route in (("frame_hosted", "parallel_hosted"), ("frame_parallel", "parallel")):
+        c = by_path[path]
+        check(c["crc32c"] >= 1 and not any(v for k, v in c.items() if k != "crc32c"),
+              f"the {path} path ran another kernel than K1: {c}")
+        check({r[2] for r in group_routes[path]} == {route},
+              f"a group of the {path} path left its route: {group_routes[path]}")
     for path in ("frame", "reader"):
         c = by_path[path]
         check(c["crc32c"] >= 1, f"K1 crc32c did not run on the {path} path")
@@ -714,7 +841,8 @@ def main() -> int:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    timed_paths = ("frame", "frame_resolve", "frame_records", "compress", "exact", "writer")
+    timed_paths = ("frame", "frame_resolve", "frame_records", "frame_hosted", "frame_parallel",
+                   "compress", "exact", "writer")
     for path in timed_paths:
         fn = runs[path][0]
         e2e = [timed(fn) for _ in range(3)]
@@ -724,16 +852,18 @@ def main() -> int:
             t = timed(fn)
             parts, api.spans = api.spans, None
             parts["other"] = t - sum(parts.values())
-            # device spans: the kernels, and the compress paths' tensor ops
-            on_dev = sum(parts.get(k, 0.0) for k in ("kernels", "prepass", "plan", "assemble"))
-            traced.append({"e2e_s": t, "parts_s": parts, "kernel_share": parts["kernels"] / t,
+            # device spans: the kernels and the tensor ops (compress plan, tensor decode)
+            on_dev = sum(parts.get(k, 0.0)
+                         for k in ("kernels", "prepass", "plan", "assemble", "tensor"))
+            traced.append({"e2e_s": t, "parts_s": parts,
+                           "kernel_share": parts.get("kernels", 0.0) / t,
                            "device_busy_share": on_dev / t})
         best = min(traced, key=lambda r: r["e2e_s"])
         report[f"{path}_path"] = {
             "launches": by_path[path], "cold_s": t_cold[path],
             "e2e_s": e2e, "e2e_GBps": [len(data) / t / 1e9 for t in e2e],
             "traced": traced,
-            "device_GBps": len(data) / best["parts_s"]["kernels"] / 1e9,
+            "kernels_GBps": len(data) / best["parts_s"].get("kernels", float("nan")) / 1e9,
             "peak_device_bytes": report["peak_device_bytes"][path],
             "routes": group_routes[path],
         }
@@ -785,7 +915,9 @@ def main() -> int:
             want_e = e
         check(want_e is not None, f"the host engine decoded the stream with a bad {what}")
         for route, cfg in (("flat", {}), ("resolve", {"decode_resolve": True}),
-                           ("records", {"decode_records": True})):
+                           ("records", {"decode_records": True}),
+                           ("parallel_hosted", {"decode_kernels": False}),
+                           ("parallel", {"pure_device": True})):
             got_e = None
             try:
                 under(lambda: snappy_tpu_torch.decompress_frame(bad), **cfg)()
@@ -797,6 +929,47 @@ def main() -> int:
                   f"host engine {want_e!r}")
         report["corrupt"][what] = repr(want_e)
     print(f"corrupt streams raise what the host engine raises on every route: {report['corrupt']}")
+
+    # The CLI, as a user runs it, in processes of its own on the card: a
+    # corpus file compressed with -k and decompressed with -d on the device
+    # engine, and a --raw round trip; each result compared with cmp against
+    # the original and the host codec's bytes.
+    cli_dir = os.path.join(HERE, "chiprun_out", "cli")
+    subprocess.run(["rm", "-rf", cli_dir], check=True)
+    os.makedirs(os.path.join(cli_dir, "raw"))
+    with open(os.path.join(HERE, "data", "lcet10.txt"), "rb") as f:
+        text = f.read()
+    for name, blob in (("lcet10.txt", text), ("orig.txt", text),
+                       ("host.sz", native.frame_compress(text)),
+                       ("host.raw", native.compress(text))):
+        with open(os.path.join(cli_dir, name), "wb") as f:
+            f.write(blob)
+    env = {**os.environ, "PYTHONPATH": HERE}
+
+    def szip(*args, cwd=cli_dir):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "snappy_tpu_torch.cli.szip", "--engine",
+                            "device", *args], cwd=cwd, env=env, capture_output=True, text=True)
+        check(r.returncode == 0 and not r.stderr, f"szip {args}: {r.returncode} {r.stderr}")
+        return time.perf_counter() - t0
+
+    def same(a, b):
+        r = subprocess.run(["cmp", a, b], cwd=cli_dir, capture_output=True, text=True)
+        check(r.returncode == 0, f"cmp {a} {b}: {r.stdout}{r.stderr}")
+
+    cli_s = {"compress": szip("-k", "lcet10.txt")}
+    same("lcet10.txt.sz", "host.sz")
+    os.remove(os.path.join(cli_dir, "lcet10.txt"))
+    cli_s["decompress"] = szip("-d", "lcet10.txt.sz")
+    same("lcet10.txt", "orig.txt")
+    cli_s["raw_compress"] = szip("--raw", "-k", "orig.txt")
+    same("orig.txt.sz", "host.raw")
+    os.replace(os.path.join(cli_dir, "orig.txt.sz"), os.path.join(cli_dir, "raw", "r.sz"))
+    cli_s["raw_decompress"] = szip("--raw", "-d", "r.sz", cwd=os.path.join(cli_dir, "raw"))
+    same("raw/r", "orig.txt")
+    report["cli_s"] = cli_s
+    print(f"szip --engine device on {len(text)} bytes: -k, -d and --raw both ways equal the "
+          f"original and the host codec's files (cmp); seconds per process {cli_s}")
 
     report["kernels"] = kernels
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

@@ -45,6 +45,21 @@ class Config:
     - ``blocks_per_launch``: 64 KiB blocks per compress launch; a
       launch's rows pad to the next power of two.
     - ``decode_rows_per_launch``: rows per batched-decode launch group.
+    - ``decode_kernels``: decode launch groups with the kernel routes
+      (flat, replay, and the record-scan routes below). ``None`` (the
+      default) means on unless ``pure_device``; ``False`` pins the tensor
+      routes of ``ops/decode.py``: the hosted one (the host's op-start
+      bitmap, ``native.scan_ops_batch``), or under ``pure_device`` the
+      all-device one (op discovery by pointer doubling). Carried from the
+      JAX package's ``pallas_decode``.
+    - ``decode_flat``: within the kernel routes, the flat route (host
+      flatten, K2); ``False`` sends groups to the replay kernel (K3), or
+      past ``replay_max_body`` to a tensor route. From ``pallas_flat``.
+    - ``pure_device``: no host scan of any kind: the record-scan, flat and
+      hosted routes are off, the kernels too unless ``decode_kernels`` is
+      ``True`` (then K3 takes the groups up to ``replay_max_body``), and
+      every other group, an oversized one included, takes the all-device
+      tensor route on the card. From ``pure_device``.
     - ``decode_records``: decode launch groups by record replay (K10):
       the host scans each row's ops into 8-byte records
       (``native.scan_records_batch``) and the card replays them. A group
@@ -64,9 +79,10 @@ class Config:
     - ``max_dpad``: padded output width per launch group; wider groups
       decode on the host (multi-MB raw streams; frame chunks never get
       there).
-    - ``replay_max_body``: carried over from the JAX package's config,
-      where rejected groups wider than it leave the replay kernel. It has
-      no effect here: the replay kernel takes every rejected group.
+    - ``replay_max_body``: the widest rows (compressed bytes) the replay
+      kernel (K3) takes; a group the other kernel routes leave that is
+      wider takes a tensor route (hosted, or all-device under
+      ``pure_device``).
     - ``threads``: host C++ codec thread cap; 0 = hardware concurrency.
     - ``debug``: cross-check every device decode against the NumPy
       oracle and fail loudly on divergence.
@@ -80,6 +96,9 @@ class Config:
     device: str = "cuda"
     blocks_per_launch: int = 2048
     decode_rows_per_launch: int = 512
+    decode_kernels: bool | None = None
+    decode_flat: bool = True
+    pure_device: bool = False
     decode_records: bool = False
     decode_resolve: bool = False
     max_device_stream: int = 1 << 26
@@ -96,6 +115,9 @@ _REFERENCE_FIELDS = {
     "engine": "engine",
     "blocks_per_launch": "blocks_per_launch",
     "decode_rows_per_launch": "decode_rows_per_launch",
+    "pallas_decode": "decode_kernels",
+    "pallas_flat": "decode_flat",
+    "pure_device": "pure_device",
     "pallas_records": "decode_records",
     "pallas_resolve": "decode_resolve",
     "max_device_stream": "max_device_stream",
@@ -112,10 +134,11 @@ def config_from_reference(fields: dict) -> Config:
 
     ``fields`` is ``dataclasses.asdict`` of a ``snappy_tpu.config.Config``
     (a plain dict, so this module imports nothing of the JAX package).
-    Shared knobs carry over, the record-scan decode routes' selectors
-    among them; TPU-only ones (the other Pallas route selectors, the
-    choice of compress encoder) have no counterpart and are ignored;
-    ``device`` keeps its default.
+    Shared knobs carry over, the decode route selectors among them
+    (``pallas_decode``, ``pallas_flat``, ``pure_device``, ``pallas_records``,
+    ``pallas_resolve``); TPU-only ones (the compose machinery, the choice
+    of compress encoder) have no counterpart and are ignored; ``device``
+    keeps its default.
     """
     return Config(
         **{ours: fields[theirs] for theirs, ours in _REFERENCE_FIELDS.items()}

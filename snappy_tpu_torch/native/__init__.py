@@ -7,10 +7,12 @@ the JAX package's prebuilt library. A failed build raises: the port's
 decode path needs the host flatten.
 
 Exposed: the host halves of the device decode (``flatten_idx_batch``,
-``scan_records_batch``), the sequential host engine the API falls back to
-and the tests compare with (``decompress``, ``decompress_len``,
-``decompress_batch``, ``crc32c_masked``, ``frame_decompress``), the
-encoders of the host engine, which also make test and smoke-run streams
+``scan_records_batch``, and the op-start bitmaps of the hosted tensor
+decode, ``scan_ops`` and ``scan_ops_batch``), the sequential host engine
+the API falls back to and the tests compare with (``decompress``,
+``decompress_len``, ``decompress_batch``, ``crc32c_masked``,
+``frame_decompress``), the encoders of the host engine, which also make
+test and smoke-run streams
 (``frame_compress``, ``compress``), and the into-buffer calls of the
 streaming adapters (``compress_into``, ``decompress_into``,
 ``frame_decompress_len``, ``frame_decompress_into``).
@@ -66,6 +68,9 @@ def _load() -> ctypes.CDLL:
             "stpu_frame_decompress": (
                 i64, [ctypes.c_char_p, u64, ptr, u64, cint, errp]
             ),
+            "stpu_scan_ops": (i64, [ctypes.c_char_p, u64, ptr]),
+            # srcs, src_stride, lens, bits, bits_stride, n, threads
+            "stpu_scan_ops_batch": (None, [ptr, u64, ptr, ptr, u64, u64, cint]),
             # srcs, src_stride, lens, declens, recs, rec_cap, nops, errs,
             # dtotals, n, threads
             "stpu_scan_records_batch": (
@@ -213,6 +218,38 @@ def decompress_batch(blocks: list[bytes], threads: int = 0) -> list[bytes]:
             _raise(e)
         outs.append(dsts[i, : int(out_lens[i])].tobytes())
     return outs
+
+
+def scan_ops(body: bytes, bits_out: np.ndarray | None = None) -> np.ndarray:
+    """Op-start bitmap of one raw op stream (no varint header): the tag
+    walk of ``stpu_scan_ops``, which reads zeros past the body, clamps
+    lengths at 2^30 and does not stop at a malformed op, as the tensor
+    decode's speculative parse does. Returns a ``(ceil(len / 8),)`` uint8
+    little-endian bitmap, or fills ``bits_out`` (which may be wider; its
+    tail is left as it is)."""
+    nbits = (len(body) + 7) // 8
+    if bits_out is None:
+        bits_out = np.zeros(max(nbits, 1), np.uint8)
+    if bits_out.dtype != np.uint8 or bits_out.shape[0] < nbits or not bits_out.flags.c_contiguous:
+        raise ValueError(f"bits_out must be contiguous uint8 of at least {nbits} bytes")
+    _load().stpu_scan_ops(body, len(body), bits_out.ctypes.data)
+    return bits_out
+
+
+def scan_ops_batch(srcs, lens, bits, threads: int = 0) -> None:
+    """Op-start bitmaps of ``n`` rows at once, chunk-parallel: row ``i``
+    of ``bits`` (``(n, stride)`` uint8, zeroed by the caller) takes the
+    bitmap of ``srcs[i, :lens[i]]``."""
+    srcs = _in_rows(srcs, np.uint8)
+    lens = _in_rows(lens, np.uint64)
+    if bits.dtype != np.uint8 or not bits.flags.c_contiguous or bits.shape[0] != lens.shape[0]:
+        raise ValueError("bits must be contiguous uint8 with one row per stream")
+    if bits.shape[1] * 8 < int(lens.max(initial=0)):
+        raise ValueError(f"bits rows of {bits.shape[1]} bytes are too short")
+    _load().stpu_scan_ops_batch(
+        srcs.ctypes.data, srcs.shape[1], lens.ctypes.data, bits.ctypes.data,
+        bits.shape[1], lens.shape[0], _threads(threads),
+    )
 
 
 def scan_records_batch(srcs, lens, declens, rec_cap: int, threads: int = 0):

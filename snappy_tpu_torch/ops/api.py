@@ -18,6 +18,11 @@ Two opt-in routes start from the host's op-record scan
 package's precedence and fall-through: ``Config.decode_records`` replays the
 records (K10, ``ops/records.py``), and ``Config.decode_resolve`` resolves
 every byte's literal origin on the card (K8, ``ops/resolve.py``) before K2.
+Two more decode in tensor ops (``ops/decode.py``, the JAX package's XLA
+decode): the hosted route from the host's op-start bitmap
+(``native.scan_ops_batch``), where ``Config.decode_kernels`` is ``False``
+or a group is wider than the replay kernel takes, and the all-device route,
+op discovery included, under ``Config.pure_device``.
 
 Exact error parity: kernels reduce validity to a device code; on any
 flagged stream the host re-runs the NumPy reference codec, which raises
@@ -60,6 +65,7 @@ from ..format.constants import (
 from ..format.varint import read_varu64, write_varu64
 from . import packing
 from .crc32c import crc32c_masked_blocks
+from .decode import decode_batch, decode_batch_hosted, decode_crc_batch, decode_crc_batch_hosted
 from .decode_flat import decode_flat
 from .encode import compress_blocks_host
 from .encode_flat import compress_blocks_flat_host
@@ -77,14 +83,16 @@ from .resolve import decode_resolve_batch
 #: events and synchronised while timing is on, so that no host part
 #: includes waiting for them: ``kernels`` (the launches), for the fast
 #: compress ``prepass`` and ``plan`` (the tensor ops before K4 and before
-#: K5), for the resolve route ``plan`` (its tensor ops around K8 or K9), and
-#: for the device frame writer ``assemble`` (the chunk framing).
+#: K5), for the resolve route ``plan`` (its tensor ops around K8 or K9), for
+#: the tensor decode routes ``tensor`` (their tensor ops and CRC launch), and
+#: for the device frame writer ``assemble`` (the chunk framing). ``scan``
+#: also times the host's op-start bitmaps of the hosted tensor route.
 spans: dict[str, float] | None = None
 
 #: The route each decode launch group took, in order, while this is a list
 #: (set it to ``[]`` to start, ``None`` to stop): ``(rows, d_pad, route)``
 #: with ``route`` one of ``"flat"``, ``"replay"``, ``"records"``,
-#: ``"resolve"``.
+#: ``"resolve"``, ``"parallel_hosted"`` and ``"parallel"``.
 routes: list[tuple[int, int, str]] | None = None
 
 
@@ -271,33 +279,74 @@ def _scan_route(srcs, lens64, decl64, srcs_t, declens_t, d_pad, cfg):
         return None if bool(fallback.any()) else (dst, herrs)
 
 
+def decode_routes(cfg) -> tuple[bool, bool]:
+    """``(host scan, kernel routes)`` under ``cfg``, the JAX package's
+    precedence: ``pure_device`` turns off the host scan and, unless
+    ``decode_kernels`` is ``True``, the kernels; ``decode_kernels=False``
+    turns off the kernels."""
+    kernels = cfg.decode_kernels if cfg.decode_kernels is not None else not cfg.pure_device
+    return not cfg.pure_device, kernels
+
+
+def _tensor_route(srcs, lens, srcs_t, declens_t, d_pad, scan: bool, with_crc: bool):
+    """A launch group through the tensor decode of ``ops/decode.py``: from
+    the host's op-start bitmaps when ``scan``, else all on the device.
+    Returns ``(dst, err tensor, crc tensor or None)``."""
+    dev = srcs_t.device
+    with _span("h2d"):
+        lens_t = torch.from_numpy(np.asarray(lens, np.int32)).to(dev)
+    args = (srcs_t, lens_t, declens_t)
+    if scan:
+        with _span("scan"):
+            bits = np.zeros((srcs.shape[0], srcs.shape[1] // 8), np.uint8)
+            native.scan_ops_batch(srcs, np.asarray(lens, np.uint64), bits)
+        with _span("h2d"):
+            args += (torch.from_numpy(bits).to(dev),)
+    if scan:
+        fn = decode_crc_batch_hosted if with_crc else decode_batch_hosted
+    else:
+        fn = decode_crc_batch if with_crc else decode_batch
+    with _span("tensor", dev):
+        dst, errs, _total, *crc = fn(*args, d_pad)
+    return dst, errs, (crc[0] if with_crc else None)
+
+
 def decode_group(srcs: np.ndarray, lens: np.ndarray, declens: list[int], d_pad: int,
-                 dev: torch.device):
+                 dev: torch.device, with_crc: bool = False):
     """Decode one launch group of zero-padded bodies on ``dev``.
 
-    Under ``Config.decode_records`` the host scans the ops into records and
-    K10 replays them; a group whose op count overflows the record cap takes
-    K3. Else under ``Config.decode_resolve``, for a group of outputs in whole
-    16 KiB up to 64 KiB and rows up to 64 KiB, the host scans and the card
-    resolves (``ops/resolve.py``); a group it cannot finish falls through.
-    Otherwise (the default) the host flatten resolves every copy chain and
-    K2 gathers the bytes (``layout=1`` when ``d_pad`` is whole 16 KiB
-    groups, else 0); if the flatten cannot window some tile of the group,
-    the whole group takes K3 instead. Returns ``(dst (B, d_pad) uint8 on
-    dev, errs (B,) int32 numpy, declens (B,) int32 on dev)``.
+    The kernel routes, in the JAX package's order, when they are on
+    (:func:`decode_routes`) and ``d_pad`` is within ``Config.max_dpad``:
+    under ``Config.decode_records`` the host scans the ops into records and
+    K10 replays them; else under ``Config.decode_resolve``, for a group of
+    outputs in whole 16 KiB up to 64 KiB and rows up to 64 KiB, the host
+    scans and the card resolves (``ops/resolve.py``); else, under
+    ``Config.decode_flat`` (the default), the host flatten resolves every
+    copy chain and K2 gathers the bytes (``layout=1`` when ``d_pad`` is
+    whole 16 KiB groups, else 0). A group these leave (a record-cap
+    overflow, a flagged resolve, a tile the flatten cannot window) takes
+    K3 if its rows are at most ``Config.replay_max_body`` wide. Every other
+    group decodes in tensor ops: from the host's op-start bitmap, or all
+    on the device under ``Config.pure_device``. Returns ``(dst (B, d_pad)
+    uint8 on dev, errs (B,) int32 numpy, crcs (B,) int64 on dev or
+    None)``; the CRCs (K1) when ``with_crc``.
     """
     cfg = get_config()
+    scan, kernels = decode_routes(cfg)
+    kernels = kernels and d_pad <= cfg.max_dpad
     lens64 = np.asarray(lens, np.uint64)
     decl64 = np.asarray(declens, np.uint64)
     with _span("h2d"):
         srcs_t = torch.from_numpy(srcs).to(dev)
         declens_t = torch.from_numpy(np.asarray(declens, np.int32)).to(dev)
-    got = None
+    got, crc = None, None
+    scanned = kernels and scan  # the kernel routes that start from a host scan
+    use_records = scanned and cfg.decode_records
     resolve_ok = d_pad % 16384 == 0 and d_pad <= 65536 and srcs.shape[1] <= 65536
-    if cfg.decode_records or (cfg.decode_resolve and resolve_ok):
+    if use_records or (scanned and cfg.decode_resolve and resolve_ok):
         got = _scan_route(srcs, lens64, decl64, srcs_t, declens_t, d_pad, cfg)
-        route = "records" if cfg.decode_records else "resolve"
-    if got is None and not cfg.decode_records:
+        route = "records" if use_records else "resolve"
+    if got is None and scanned and cfg.decode_flat and not use_records:
         layout = 1 if d_pad % 16384 == 0 else 0
         with _span("flatten"):
             idx, tmeta, fallb, herrs, _ = native.flatten_idx_batch(
@@ -310,7 +359,7 @@ def decode_group(srcs: np.ndarray, lens: np.ndarray, declens: list[int], d_pad: 
             with _span("kernels", dev):
                 got = decode_flat(srcs_t, idx_t, tmeta_t, declens_t, d_pad, layout), herrs
             route = "flat"
-    if got is None:
+    if got is None and kernels and srcs.shape[1] <= cfg.replay_max_body:
         with _span("h2d"):
             lens_t = torch.from_numpy(np.asarray(lens, np.int32)).to(dev)
         with _span("kernels", dev):
@@ -318,9 +367,17 @@ def decode_group(srcs: np.ndarray, lens: np.ndarray, declens: list[int], d_pad: 
         with _span("d2h"):
             got = dst, gerrs.cpu().numpy()
         route = "replay"
+    if got is None:
+        dst, gerrs, crc = _tensor_route(srcs, lens, srcs_t, declens_t, d_pad, scan, with_crc)
+        with _span("d2h"):
+            got = dst, gerrs.cpu().numpy()
+        route = "parallel_hosted" if scan else "parallel"
+    elif with_crc:
+        with _span("kernels", dev):
+            crc = crc32c_masked_blocks(got[0], declens_t)
     if routes is not None:
         routes.append((len(declens), d_pad, route))
-    return (*got, declens_t)
+    return (*got, crc)
 
 
 def decompress_streams(
@@ -347,6 +404,7 @@ def decompress_streams(
     errs = np.zeros(len(bodies), np.int32)
     crcs = np.zeros(len(bodies), np.uint32) if with_crc else None
 
+    scan, _ = decode_routes(cfg)
     with _span("pack"):
         groups = launch_groups(bodies, cfg.decode_rows_per_launch)
     for idxs in groups:
@@ -355,10 +413,11 @@ def decompress_streams(
         d_pad = packing.pad_to_bucket(max(max(gdecl), 1), 1024)
         with _span("pack"):
             srcs, lens = packing.batch_streams(group, _width_bucket(len(group[0])))
-        if d_pad > cfg.max_dpad:
+        if d_pad > cfg.max_dpad and scan:
             # Oversized rows (multi-MB raw streams; frame chunks never get
             # here): the multithreaded host codec. Error codes come from
             # the host op scan, a lockstep mirror of device validation.
+            # Under pure_device they decode on the device, in tensor ops.
             with _span("host_decode"):
                 _, _, gerrs, _ = native.scan_records_batch(
                     srcs, np.asarray(lens, np.uint64), np.asarray(gdecl, np.uint64), 512
@@ -372,11 +431,7 @@ def decompress_streams(
                     if with_crc:
                         crcs[idxs[j]] = native.crc32c_masked(decoded[k])
         else:
-            dst, gerrs, declens_t = decode_group(srcs, lens, gdecl, d_pad, dev)
-            gcrc = None
-            if with_crc:
-                with _span("kernels", dev):
-                    gcrc = crc32c_masked_blocks(dst, declens_t)
+            dst, gerrs, gcrc = decode_group(srcs, lens, gdecl, d_pad, dev, with_crc)
             with _span("d2h"):
                 gcrc = gcrc.cpu().numpy() if with_crc else None
                 dst = dst.cpu().numpy()

@@ -1,5 +1,5 @@
-"""Flat-gather decode over host-flattened indices: kernel K2
-(``csrc/flat_gather.cu``).
+"""Flat-gather decode over host-flattened indices: kernels K2
+(``csrc/flat_gather.cu``) and K11 (``csrc/flat_grouped.cu``).
 
 The host flatten (``native.flatten_idx_batch``) turns every copy chain
 into the index of the literal byte it reads, relative to its 1024-byte
@@ -11,7 +11,14 @@ for ``d < declens[b]``, and 0 up to ``d_pad``. ``layout=0`` keeps ``idx``
 in output order (``phys(d) = d``); ``layout=1`` is the transposed block
 order the flatten writes for widths that are whole 16 KiB groups
 (:func:`phys_index`). The bucket column of ``tile_meta`` only sized the
-TPU kernels' matrix-unit windows and is ignored.
+TPU kernels' matrix-unit windows and K2 ignores it.
+
+K11, :func:`decode_flat_grouped`, is the JAX package's v3/v4 entry
+(``decode_flat_pallas_v3``/``_v4``): ``layout=1`` with one window bucket
+per 16 KiB group (``gbuck``, from :func:`group_buckets`). It keeps what
+the windows do to the bytes: a dead group is zeros, and a byte whose
+window-relative row lies past its group's window, or past the source
+row, is 0.
 
 ``idx`` travels as ``int16`` (torch's ``uint16`` support is thin); the
 kernel reads it as ``uint16`` and the plain version masks with 0xFFFF.
@@ -26,9 +33,14 @@ import torch
 
 from . import _build
 
-#: Kernel launches since the count was last reset, in all and per layout.
+#: Kernel launches since the count was last reset: K2 in all and per
+#: layout, K11 per variant.
 launches = 0
 layout_launches = [0, 0]
+grouped_launches = {3: 0, 4: 0}
+
+GROUP = 16384  # output bytes per bucket group (16 tiles of 1024)
+NOMINAL_WINDOWS = (128, 256, 512)  # window rows of buckets 0, 1, 2
 
 
 def phys_index(d, layout: int):
@@ -104,5 +116,111 @@ def decode_flat(srcs, idx, tile_meta, declens, d_pad: int, layout: int):
             declens.data_ptr(), d_pad, layout, out.data_ptr(), stream,
         ),
         "flat_gather",
+    )
+    return out
+
+
+def group_buckets(tile_meta, declens, d_pad: int):
+    """Each 16 KiB group's window bucket: the widest of its 16 tiles'
+    (``tile_meta[..., 1]``), or -1 for a group wholly past ``declen``.
+
+    ``tile_meta``: ``(B, d_pad // 1024, 2)`` int32; ``declens``: ``(B,)``.
+    Returns ``(B, d_pad // 16384)`` int32 on their device (the JAX
+    package's ``group_buckets``, ``ops/pallas/decode.py:1228``)."""
+    b, t, _ = tile_meta.shape
+    if d_pad % GROUP or t != d_pad // 1024:
+        raise ValueError(f"tile_meta of {t} tiles with d_pad {d_pad}")
+    g = t // 16
+    gb = tile_meta[:, :, 1].reshape(b, g, 16).amax(dim=2)
+    n_active = (declens.to(torch.int64) + GROUP - 1) // GROUP
+    dead = torch.arange(g, device=tile_meta.device)[None, :] >= n_active[:, None]
+    return torch.where(dead, -1, gb).to(torch.int32)
+
+
+def window_rows(s_rows: int) -> list[int]:
+    """Window rows of buckets 0, 1, 2 for source rows of ``s_rows`` lines
+    of 128 bytes: the nominal width, at most ``s_rows``, rounded up to 128
+    (``_make_flat_v3_kernel``, ``_make_flat_v4_kernel``)."""
+    return [-(-min(w, s_rows) // 128) * 128 for w in NOMINAL_WINDOWS]
+
+
+def decode_flat_grouped_plain(srcs, idx, tile_meta, gbuck, declens, d_pad: int, variant: int):
+    """K11's gather in PyTorch ops, on any device."""
+    b, s = srcs.shape
+    s_rows = s // 128
+    d = torch.arange(d_pad, device=srcs.device)
+    rel = idx.to(torch.int64)[:, phys_index(d, 1)] & 0xFFFF
+    row = rel >> 7
+    gb = gbuck.to(torch.int64).repeat_interleave(GROUP, dim=1)
+    live = (gb >= 0) & (gb <= 2) if variant == 3 else gb >= 0
+    widths = torch.tensor(window_rows(s_rows), device=srcs.device)
+    r = tile_meta[:, :, 0].to(torch.int64).repeat_interleave(1024, dim=1) + row
+    ok = (
+        live & (row < widths[gb.clamp(0, 2)]) & (r >= 0) & (r < s_rows)
+        & (d[None, :] < declens.to(torch.int64)[:, None])
+    )
+    val = srcs.gather(1, (r * 128 + (rel & 127)).clamp(0, s - 1))
+    return torch.where(ok, val, 0).to(torch.uint8)
+
+
+@functools.cache
+def _grouped_kernel():
+    fn = _build.kernel_lib("flat_grouped").stpu_cuda_flat_grouped
+    p, i64, cint = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    fn.argtypes = [p, i64, i64, p, p, p, p, i64, cint, cint, cint, cint, p, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def decode_flat_grouped(srcs, idx, tile_meta, gbuck, declens, d_pad: int, variant: int):
+    """Decode ``(B, S)`` uint8 bodies to ``(B, d_pad)`` uint8 bytes with a
+    window bucket per 16 KiB group: K11, the JAX package's
+    ``decode_flat_pallas_v3`` (``variant=3``) or ``_v4`` (``variant=4``).
+
+    ``idx``: ``(B, d_pad)`` int16 in the ``layout=1`` order;
+    ``tile_meta``: ``(B, d_pad // 1024, 2)`` int32; ``gbuck``:
+    ``(B, d_pad // 16384)`` int32; ``declens``: ``(B,)`` int32. ``S`` is
+    whole 128-byte lines and ``d_pad`` whole 16 KiB groups. A CUDA input
+    launches the kernel (or raises); a CPU input runs
+    :func:`decode_flat_grouped_plain`.
+    """
+    b, s = srcs.shape
+    if variant not in (3, 4):
+        raise ValueError(f"variant {variant} is not 3 or 4")
+    if srcs.dtype != torch.uint8 or idx.dtype != torch.int16:
+        raise TypeError(f"srcs must be uint8 and idx int16, got {srcs.dtype}, {idx.dtype}")
+    if any(t.dtype != torch.int32 for t in (tile_meta, gbuck, declens)):
+        raise TypeError("tile_meta, gbuck and declens must be int32")
+    if d_pad % GROUP or s % 128:
+        raise ValueError(f"d_pad {d_pad} or row width {s} is not tiled")
+    if (
+        idx.shape != (b, d_pad)
+        or tile_meta.shape != (b, d_pad // 1024, 2)
+        or gbuck.shape != (b, d_pad // GROUP)
+        or declens.shape != (b,)
+    ):
+        raise ValueError("idx, tile_meta, gbuck and declens do not match srcs and d_pad")
+    tensors = (srcs, idx, tile_meta, gbuck, declens)
+    if any(t.device != srcs.device for t in tensors):
+        raise ValueError("all inputs must be on one device")
+    if srcs.device.type == "cpu":
+        return decode_flat_grouped_plain(srcs, idx, tile_meta, gbuck, declens, d_pad, variant)
+    if srcs.device.type != "cuda":
+        raise ValueError(f"unsupported device {srcs.device}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("inputs must be contiguous")
+    if b > 65535:
+        raise ValueError(f"{b} rows exceed one launch's grid")
+    out = torch.empty((b, d_pad), dtype=torch.uint8, device=srcs.device)
+    if b == 0 or d_pad == 0:
+        return out
+    stream = torch.cuda.current_stream(srcs.device).cuda_stream
+    grouped_launches[variant] += 1
+    _build.check(
+        _grouped_kernel()(
+            srcs.data_ptr(), b, s, idx.data_ptr(), tile_meta.data_ptr(), gbuck.data_ptr(),
+            declens.data_ptr(), d_pad, variant, *window_rows(s // 128), out.data_ptr(), stream,
+        ),
+        "flat_grouped",
     )
     return out

@@ -18,8 +18,8 @@ from snappy_tpu_torch import native
 from snappy_tpu_torch.format import reference as ref
 from snappy_tpu_torch.format.varint import read_varu64, write_varu64
 from snappy_tpu_torch.ops import (
-    api, crc32c, decode_flat, emit, encode, encode_flat, packing, parse, records, replay,
-    resolve,
+    api, crc32c, decode, decode_flat, emit, encode, encode_flat, packing, parse, records,
+    replay, resolve,
 )
 from torch_vectors import (
     CORRUPT, fallback_row, overlap_rows, raw_body, resolve_cases, scan_batch,
@@ -92,6 +92,85 @@ def test_flat_gather_kernel_matches_plain(dev, layout):
     host = got.cpu().numpy()
     for i, d in enumerate(datas):
         assert host[i, : len(d)].tobytes() == d and not host[i, len(d):].any()
+
+
+def test_flat_grouped_kernel_matches_plain(dev):
+    """K11, v3 and v4, against its plain version: on corpus rows at 64 KiB
+    with the flatten's buckets (also K2's bytes and the data), with a
+    hand-made bucket plane (a live group marked dead, a 3, the groups of
+    wider tiles cut to the narrow window), and on a batch of 2 KiB rows
+    (``s_rows`` 16, under every window)."""
+    cases = [(CHUNKS, 65536, None), ([b"z" * 30000, (b"pattern!" * 4000)[:32000]], 32768, 2048)]
+    for datas, d_pad, width in cases:
+        srcs, lens = packing.batch_streams(_bodies(datas), width)
+        declens = np.asarray([len(d) for d in datas], np.int32)
+        idx, tmeta, fallb, errs, _ = native.flatten_idx_batch(
+            srcs, lens.astype(np.uint64), declens.astype(np.uint64), d_pad, layout=1
+        )
+        assert not fallb.any() and not errs.any()
+        s_t, i_t, m_t, d_t = (torch.from_numpy(x).to(dev)
+                              for x in (srcs, idx.view(np.int16), tmeta, declens))
+        gb = decode_flat.group_buckets(m_t, d_t, d_pad)
+        hand = gb.clone()
+        hand[gb > 0] = 0
+        hand[0, 0], hand[1, 1] = -1, 3
+        k2 = decode_flat.decode_flat(s_t, i_t, m_t, d_t, d_pad, 1)
+        for variant in (3, 4):
+            for g in (gb, hand):
+                before = decode_flat.grouped_launches[variant]
+                got = decode_flat.decode_flat_grouped(s_t, i_t, m_t, g, d_t, d_pad, variant)
+                torch.cuda.synchronize()
+                assert decode_flat.grouped_launches[variant] == before + 1
+                want = decode_flat.decode_flat_grouped_plain(s_t, i_t, m_t, g, d_t, d_pad, variant)
+                assert torch.equal(got, want)
+                if g is gb:
+                    assert torch.equal(got, k2)
+            assert not got[0, :16384].any()
+    host = k2.cpu().numpy()
+    for i, d in enumerate(datas):
+        assert host[i, : len(d)].tobytes() == d and not host[i, len(d):].any()
+
+
+@pytest.mark.parametrize("cfg", [{"decode_kernels": False}, {"pure_device": True}],
+                         ids=["parallel_hosted", "parallel"])
+def test_tensor_routes_on_the_card(dev, cfg, monkeypatch):
+    """Both tensor routes decode a frame stream on the card with K1 and no
+    other kernel, raise the host engine's error on a corrupt one, and give
+    the CPU run's bytes, codes, totals and CRCs on frame-sized rows."""
+    from snappy_tpu_torch.config import configure
+
+    data = (load_corpus("alice29.txt") + load_corpus("fireworks.jpeg")) * 2 + b"tail" * 1000
+    stream = native.frame_compress(data)
+    for m in (crc32c, decode_flat, replay):
+        m.launches = 0
+    monkeypatch.setattr(api, "routes", [])
+    route = "parallel" if "pure_device" in cfg else "parallel_hosted"
+    with configure(**cfg):
+        assert api.decompress_frame(stream) == data
+        assert {r[2] for r in api.routes} == {route}
+        assert crc32c.launches >= 1 and decode_flat.launches == 0 and replay.launches == 0
+        bad = bytearray(stream)
+        bad[len(bad) // 2] ^= 0x5A
+        with pytest.raises(Exception) as got:
+            api.decompress_frame(bytes(bad))
+    with pytest.raises(Exception) as want:
+        native.frame_decompress(bytes(bad))
+    assert type(got.value) is type(want.value) and str(got.value) == str(want.value)
+
+    rows = [raw_body(data[k : k + 65536]) for k in range(0, 5 * 65536, 65536)] + CORRUPT
+    srcs, lens = packing.batch_streams([r[0] for r in rows], 81920)
+    declens = np.asarray([r[1] for r in rows], np.int32)
+    bits = np.zeros((len(rows), 81920 // 8), np.uint8)
+    native.scan_ops_batch(srcs, lens.astype(np.uint64), bits)
+    cpu = [torch.from_numpy(x) for x in (srcs, lens, declens)]
+    card = [t.to(dev) for t in cpu]
+    for fn, extra in ((decode.decode_crc_batch, ()), (decode.decode_crc_batch_hosted, (bits,))):
+        extra = tuple(torch.from_numpy(x) for x in extra)
+        got = fn(*card, *(t.to(dev) for t in extra), 65536)
+        want = fn(*cpu, *extra, 65536)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+        assert (want[1][:5] == 0).all() and (want[1][5:] != 0).all()
 
 
 def _replay_rows():

@@ -17,6 +17,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PORT_MODULES = [
     "snappy_tpu_torch",
+    "snappy_tpu_torch.cli",
+    "snappy_tpu_torch.cli.szip",
     "snappy_tpu_torch.config",
     "snappy_tpu_torch.engine",
     "snappy_tpu_torch.error",
@@ -26,6 +28,7 @@ PORT_MODULES = [
     "snappy_tpu_torch.ops._build",
     "snappy_tpu_torch.ops.api",
     "snappy_tpu_torch.ops.crc32c",
+    "snappy_tpu_torch.ops.decode",
     "snappy_tpu_torch.ops.decode_flat",
     "snappy_tpu_torch.ops.emit",
     "snappy_tpu_torch.ops.encode",
@@ -139,11 +142,13 @@ def test_cuda_tensor_without_a_card_does_not_fall_back():
         crc32c.crc32c_masked_blocks(rows, lens)
 
 
-@pytest.mark.parametrize("kernel", ["resolve_fh", "resolve", "decode_records"])
+@pytest.mark.parametrize(
+    "kernel", ["resolve_fh", "resolve", "decode_records", "decode_flat_grouped"]
+)
 def test_new_kernel_wrappers_do_not_fall_back(kernel):
-    """K8, K9 and K10 take their plain versions only for CPU tensors: a
+    """K8, K9, K10 and K11 take their plain versions only for CPU tensors: a
     tensor on another device is refused, not decoded on the CPU."""
-    from snappy_tpu_torch.ops import records, resolve
+    from snappy_tpu_torch.ops import decode_flat, records, resolve
 
     def t(shape, dtype=torch.int32):
         return torch.zeros(shape, dtype=dtype, device="meta")
@@ -153,6 +158,9 @@ def test_new_kernel_wrappers_do_not_fall_back(kernel):
         "resolve": lambda: resolve.resolve(t((1, 1024))),
         "decode_records": lambda: records.decode_records(
             t((1, 128), torch.uint8), t((1, 512, 2)), t(1), t(1), 1024),
+        "decode_flat_grouped": lambda: decode_flat.decode_flat_grouped(
+            t((1, 128), torch.uint8), t((1, 16384), torch.int16), t((1, 16, 2)), t((1, 1)),
+            t(1), 16384, 4),
     }[kernel]
     with pytest.raises(ValueError, match="unsupported device"):
         call()
@@ -166,6 +174,23 @@ def test_record_scan_routes_without_a_card_raise(route, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     stream = native.frame_compress(BIG)
     with snappy_tpu_torch.configure(**{route: True}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            snappy_tpu_torch.decompress_frame(stream)
+        assert snappy_tpu_torch.decompress_frame(stream, device="cpu") == BIG
+
+
+@pytest.mark.parametrize("route", [
+    {"decode_kernels": False}, {"pure_device": True}, {"decode_flat": False},
+], ids=["parallel_hosted", "parallel", "replay"])
+def test_tensor_and_replay_routes_without_a_card_raise(route, monkeypatch):
+    """The tensor routes run on ``Config.device`` too: without a card they
+    raise, and on ``device="cpu"`` they decode."""
+    import snappy_tpu_torch
+    from snappy_tpu_torch import native
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    stream = native.frame_compress(BIG)
+    with snappy_tpu_torch.configure(**route):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             snappy_tpu_torch.decompress_frame(stream)
         assert snappy_tpu_torch.decompress_frame(stream, device="cpu") == BIG
