@@ -58,7 +58,14 @@ flatten's indices as K2 gets them and ``group_buckets``' buckets, against
 its plain version, K2's bytes and the host codec's; and against its plain
 version on hand-made buckets and on a batch of 2 KiB rows. Its own entry
 path decodes every launch group of whole 16 KiB groups through v3 and v4,
-as the JAX package's tools call it.
+as the JAX package's tools call it. K2 (both layouts) and K11 are also
+held on a wide raw stream (a body past 64 KiB, ``d_pad`` up to 1 MiB,
+16 KiB output units that read source bytes 60 KiB apart) and on rows of
+the 81,920-byte width beside a row of declen 0. K2's and K11's rows
+carry two times for the kernel and for ``torch.gather``: ``ms`` and
+``library_ms`` with the host out of the window (50 calls captured in a
+CUDA graph, its replay timed), ``call_ms`` and ``library_call_ms`` over 50
+calls back to back, the host's cost per call included.
 
 K7, the exact encoder, is held against its plain version (a Python loop
 of small launches per automaton step) on 8 corpus blocks and timed on the
@@ -119,6 +126,32 @@ def cuda_ms(fn, reps: int, warm: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call with the host out of the window: ``reps``
+    calls captured once in a CUDA graph, whose replay is timed with CUDA
+    events (the wrappers launch on the current stream, the capture's)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    stop.synchronize()
+    del graph
+    return start.elapsed_time(stop) / reps
+
+
 def bound_ms(nbytes: int, int_ops: int = 0) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = int_ops / PEAK_INT32_OPS_PER_S * 1e3
@@ -157,6 +190,26 @@ def compressed_chunks(frame: bytes):
     return out
 
 
+def literal(b: bytes) -> bytes:
+    """A literal op of 61..65536 bytes."""
+    n = len(b) - 1
+    return (bytes([60 << 2, n]) if n < 256 else bytes([61 << 2, n & 255, n >> 8])) + b
+
+
+def wide_stream(n_blocks: int) -> tuple[bytes, int]:
+    """A raw body of ``n_blocks`` 64 KiB blocks of output whose 16 KiB
+    units read source bytes 60 KiB apart: per block, a literal of 60 KiB of
+    random bytes, 32 copies of 64 bytes that reach back 60 KiB, and a
+    literal of 2 KiB. ``(body, declen)``."""
+    rng = np.random.default_rng(5)
+    body = b""
+    for _ in range(n_blocks):
+        body += literal(rng.integers(0, 256, 61440, dtype=np.uint8).tobytes())
+        body += bytes([(63 << 2) | 2, 0x00, 0xF0]) * 32
+        body += literal(rng.integers(0, 256, 2048, dtype=np.uint8).tobytes())
+    return body, n_blocks * 65536
+
+
 def flatten_rejected_stream() -> tuple[bytes, bytes]:
     """A raw stream whose 1024-byte output tile at 64 KiB reads both the
     first literal (via a 65535-offset copy) and a fresh literal ~66 KiB
@@ -166,10 +219,6 @@ def flatten_rejected_stream() -> tuple[bytes, bytes]:
 
     rng = np.random.default_rng(11)
     lits = [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in (1024, 64512, 64)]
-
-    def literal(b: bytes) -> bytes:
-        n = len(b) - 1
-        return (bytes([60 << 2, n]) if n < 256 else bytes([61 << 2, n & 255, n >> 8])) + b
 
     body = literal(lits[0]) + literal(lits[1]) + bytes([(63 << 2) | 2, 0xFF, 0xFF])
     body += literal(lits[2])
@@ -289,20 +338,24 @@ def main() -> int:
     check(equal, "K1 crc32c differs from its plain version")
 
     # -- K2 flat gather, both layouts, on corpus chunks as the main path groups them --
+    # Timed two ways, each for the kernel and for its torch.gather yardstick:
+    # ms with the host out of the window (a CUDA graph of 50 calls), call_ms
+    # over 50 calls back to back (the host's per-call cost included).
+    def flat_inputs(srcs, glens, gd, d_pad, layout):
+        idx, tmeta, fallb, herrs, _ = native.flatten_idx_batch(
+            srcs, glens.astype(np.uint64), np.asarray(gd, np.uint64), d_pad, layout=layout)
+        check(not fallb.any() and not herrs.any(), "the flatten rejected a row")
+        return idx, tmeta, (
+            torch.from_numpy(srcs).to(dev), torch.from_numpy(idx.view(np.int16)).to(dev),
+            torch.from_numpy(tmeta).to(dev), torch.from_numpy(np.asarray(gd, np.int32)).to(dev))
+
     big = max(groups, key=len)
     tail = [g for g in groups if packing.pad_to_bucket(max(chunks[i][1] for i in g), 1024) % 16384]
     check(bool(tail), "the stream has no tail chunk for layout 0")
     for layout, g in ((1, big), (0, tail[0])):
         srcs, glens, gd, d_pad = group_inputs(g)
         check(layout == (1 if d_pad % 16384 == 0 else 0), f"group d_pad {d_pad}")
-        idx, tmeta, fallb, herrs, _ = native.flatten_idx_batch(
-            srcs, glens.astype(np.uint64), np.asarray(gd, np.uint64), d_pad, layout=layout
-        )
-        check(not fallb.any() and not herrs.any(), "flatten rejected a corpus chunk")
-        a = (
-            torch.from_numpy(srcs).to(dev), torch.from_numpy(idx.view(np.int16)).to(dev),
-            torch.from_numpy(tmeta).to(dev), torch.from_numpy(np.asarray(gd, np.int32)).to(dev),
-        )
+        idx, tmeta, a = flat_inputs(srcs, glens, gd, d_pad, layout)
         got = decode_flat.decode_flat(*a, d_pad, layout)
         want = decode_flat.decode_flat_plain(*a, d_pad, layout)
         expect = np.zeros((len(g), d_pad), np.uint8)
@@ -322,6 +375,8 @@ def main() -> int:
         live_tiles = sum(-(-x // 1024) for x in gd)
         nbytes = 2 * sum(gd) + int(glens.sum()) + 8 * live_tiles + 4 * len(g) + len(g) * d_pad
         bnd, by = bound_ms(nbytes)
+        k2 = lambda: decode_flat.decode_flat(*a, d_pad, layout)  # noqa: E731
+        lib = lambda: torch.gather(padded, 1, absidx_t)  # noqa: E731
         kernels.append({
             "name": f"flat_gather[layout={layout}]", "route": "cuda",
             "source": "snappy_tpu_torch/csrc/flat_gather.cu",
@@ -329,10 +384,10 @@ def main() -> int:
                          else "snappy_tpu/ops/pallas/decode.py:1395 decode_flat_pallas"),
             "shape": [len(g), srcs.shape[1], d_pad], "equal": equal,
             "max_abs_err": max_abs_err(got, want),
-            "ms": cuda_ms(lambda: decode_flat.decode_flat(*a, d_pad, layout), 50),
+            "ms": device_ms(k2, 50), "call_ms": cuda_ms(k2, 50),
             "plain_ms": cuda_ms(lambda: decode_flat.decode_flat_plain(*a, d_pad, layout), 5),
             "bound_ms": bnd, "bound_by": by,
-            "library_ms": cuda_ms(lambda: torch.gather(padded, 1, absidx_t), 50),
+            "library_ms": device_ms(lib, 50), "library_call_ms": cuda_ms(lib, 50),
         })
         check(equal, f"K2 flat gather layout {layout} differs from its plain version")
         if layout == 1:
@@ -354,16 +409,12 @@ def main() -> int:
     narrow_rows = [b"z" * 30000, (b"pattern!" * 4000)[:32000]]
     n_srcs, n_lens = packing.batch_streams(
         [c[read_varu64(c)[1]:] for c in map(native.compress, narrow_rows)], 2048)
-    n_decl = np.asarray([len(r) for r in narrow_rows], np.int32)
-    n_idx, n_meta, n_fb, n_err, _ = native.flatten_idx_batch(
-        n_srcs, n_lens.astype(np.uint64), n_decl.astype(np.uint64), 32768, layout=1)
-    check(not n_fb.any() and not n_err.any(), "flatten rejected a narrow row")
-    narrow = [torch.from_numpy(x).to(dev) for x in (n_srcs, n_idx.view(np.int16), n_meta)]
-    n_decl_t = torch.from_numpy(n_decl).to(dev)
-    narrow += [decode_flat.group_buckets(narrow[2], n_decl_t, 32768), n_decl_t]
+    *_, narrow = flat_inputs(n_srcs, n_lens, [len(r) for r in narrow_rows], 32768, 1)
+    narrow = [*narrow[:3], decode_flat.group_buckets(narrow[2], narrow[3], 32768), narrow[3]]
     report["grouped"] = {"gbuck_histogram": torch.bincount(gbuck.flatten().long() + 1).tolist(),
                          "hand_made_differs": None}
     bnd, by = bound_ms(nbytes)
+    lib = lambda: torch.gather(padded, 1, absidx_t)  # noqa: E731
     for variant in (3, 4):
         got = decode_flat.decode_flat_grouped(*a[:3], gbuck, a[3], d_pad, variant)
         want = decode_flat.decode_flat_grouped_plain(*a[:3], gbuck, a[3], d_pad, variant)
@@ -377,26 +428,75 @@ def main() -> int:
                  and torch.equal(got_n, want_n)
                  and all(host_n[i, : len(r)].tobytes() == r for i, r in enumerate(narrow_rows)))
         report["grouped"]["hand_made_differs"] = not torch.equal(got_h, got)
+        k11 = lambda: decode_flat.decode_flat_grouped(*a[:3], gbuck, a[3], d_pad, variant)  # noqa: E731
         kernels.append({
             "name": f"flat_grouped[v{variant}]", "route": "cuda",
-            "source": "snappy_tpu_torch/csrc/flat_grouped.cu",
+            "source": "snappy_tpu_torch/csrc/flat_gather.cu",
             "replaces": "snappy_tpu/ops/pallas/decode.py:" + (
                 "1248 decode_flat_pallas_v3" if variant == 3 else "1166 decode_flat_pallas_v4"),
             "shape": [a[0].shape[0], a[0].shape[1], d_pad], "equal": equal,
             "max_abs_err": max(max_abs_err(got, want), max_abs_err(got, k2_out),
                                max_abs_err(got_h, want_h), max_abs_err(got_n, want_n)),
-            "ms": cuda_ms(lambda: decode_flat.decode_flat_grouped(
-                *a[:3], gbuck, a[3], d_pad, variant), 50),
+            "ms": device_ms(k11, 50), "call_ms": cuda_ms(k11, 50),
             "plain_ms": cuda_ms(lambda: decode_flat.decode_flat_grouped_plain(
                 *a[:3], gbuck, a[3], d_pad, variant), 5),
             "bound_ms": bnd, "bound_by": by,
-            "library_ms": cuda_ms(lambda: torch.gather(padded, 1, absidx_t), 50),
-            "k2_ms_same_call": cuda_ms(lambda: decode_flat.decode_flat(*a, d_pad, 1), 50),
+            "library_ms": device_ms(lib, 50), "library_call_ms": cuda_ms(lib, 50),
+            "k2_ms_same_call": device_ms(lambda: decode_flat.decode_flat(*a, d_pad, 1), 50),
         })
         check(equal, f"K11 v{variant} differs from its plain version, K2 or the host codec")
     check(report["grouped"]["hand_made_differs"], "the hand-made buckets changed no byte")
     print(f"K11: bucket histogram (-1, 0, 1, 2) {report['grouped']['gbuck_histogram']}")
     del big_k2, a, k2_out, expect, padded, absidx_t, narrow, got, want, got_h, want_h
+
+    # -- K2 and K11 past the main path's shapes ----------------------------------------
+    # A wide raw stream (a body past 64 KiB, d_pad up to 1 MiB, units that
+    # read source bytes 60 KiB apart) in both layouts, and rows of the
+    # 81,920-byte width (incompressible 64 KiB chunks) beside a corpus chunk
+    # and a row of declen 0: K2 against its plain version and the host codec,
+    # and in layout 1 K11 v3 and v4 against theirs and K2's bytes.
+    noise = np.random.default_rng(3).integers(0, 256, 65536, dtype=np.uint8).tobytes()
+    w15, w16 = wide_stream(15), wide_stream(16)
+    rows81920 = [(c[read_varu64(c)[1]:], len(x)) for x in (noise, noise[::-1], data[:65536], b"")
+                 for c in (native.compress(x),)]
+    report["flat_edge_cases"] = {}
+    by_name = {k["name"]: k for k in kernels}
+    for name, rows, layout, d_pad, width in (
+        ("wide", [w16], 1, 1 << 20, None),
+        ("wide", [(w15[0] + literal(bytes(range(200)) * 5), w15[1] + 1000)], 0, 984064, None),
+        ("rows_81920", rows81920, 1, 65536, 81920),
+        ("rows_81920", rows81920, 0, 66560, 81920),
+    ):
+        srcs, glens = packing.batch_streams([r[0] for r in rows], width)
+        gd = [r[1] for r in rows]
+        check(max(gd) <= d_pad and (d_pad % 16384 == 0) == bool(layout), f"{name} d_pad {d_pad}")
+        _, _, a = flat_inputs(srcs, glens, gd, d_pad, layout)
+        got = decode_flat.decode_flat(*a, d_pad, layout)
+        want = decode_flat.decode_flat_plain(*a, d_pad, layout)
+        host = got.cpu().numpy()
+        equal = torch.equal(got, want) and all(
+            host[i, :n].tobytes() == native.decompress(write_varu64(n) + body)
+            and not host[i, n:].any() for i, (body, n) in enumerate(rows))
+        k = by_name[f"flat_gather[layout={layout}]"]
+        k["equal"] = k["equal"] and equal
+        k["max_abs_err"] = max(k["max_abs_err"], max_abs_err(got, want))
+        case = {"shape": list(srcs.shape) + [d_pad], "equal": equal}
+        if layout:
+            gb = decode_flat.group_buckets(a[2], a[3], d_pad)
+            for variant in (3, 4):
+                got11 = decode_flat.decode_flat_grouped(*a[:3], gb, a[3], d_pad, variant)
+                want11 = decode_flat.decode_flat_grouped_plain(*a[:3], gb, a[3], d_pad, variant)
+                eq11 = torch.equal(got11, want11) and torch.equal(got11, got)
+                k = by_name[f"flat_grouped[v{variant}]"]
+                k["equal"] = k["equal"] and eq11
+                k["max_abs_err"] = max(k["max_abs_err"], max_abs_err(got11, want11),
+                                       max_abs_err(got11, got))
+                case[f"v{variant}_equal"] = eq11
+                equal = equal and eq11
+        report["flat_edge_cases"][f"{name}[layout={layout}]"] = case
+        check(equal, f"K2 or K11 differs on the {name} case, layout {layout}")
+    print(f"K2/K11 edge cases: {report['flat_edge_cases']}")
+    del a, got, want, host
 
     # -- K3 replay ----------------------------------------------------------------------
     def replay_case(rows_bodies, declens, width=None):

@@ -44,6 +44,14 @@ class Config:
       With ``"cuda"`` and no card the entry points raise.
     - ``blocks_per_launch``: 64 KiB blocks per compress launch; a
       launch's rows pad to the next power of two.
+    - ``flat_encode``: the encoder of ``compress(profile="fast")`` (and so
+      of the ``device-fast`` engine and ``szip --engine device-fast``).
+      ``True`` takes the flat encoder (K4, K5); ``False`` the fast profile
+      in tensor ops (``ops/encode_fast.py``, the JAX package's
+      ``compress_blocks_fast_host``); ``None`` (the default) the flat
+      encoder, as the JAX package's ``None`` does on its TPU: the port's
+      card plays the TPU's part. Carried from the JAX package's
+      ``flat_encode``.
     - ``decode_rows_per_launch``: rows per batched-decode launch group.
     - ``decode_kernels``: decode launch groups with the kernel routes
       (flat, replay, and the record-scan routes below). ``None`` (the
@@ -95,6 +103,7 @@ class Config:
 
     device: str = "cuda"
     blocks_per_launch: int = 2048
+    flat_encode: bool | None = None
     decode_rows_per_launch: int = 512
     decode_kernels: bool | None = None
     decode_flat: bool = True
@@ -114,6 +123,7 @@ class Config:
 _REFERENCE_FIELDS = {
     "engine": "engine",
     "blocks_per_launch": "blocks_per_launch",
+    "flat_encode": "flat_encode",
     "decode_rows_per_launch": "decode_rows_per_launch",
     "pallas_decode": "decode_kernels",
     "pallas_flat": "decode_flat",
@@ -134,11 +144,11 @@ def config_from_reference(fields: dict) -> Config:
 
     ``fields`` is ``dataclasses.asdict`` of a ``snappy_tpu.config.Config``
     (a plain dict, so this module imports nothing of the JAX package).
-    Shared knobs carry over, the decode route selectors among them
-    (``pallas_decode``, ``pallas_flat``, ``pure_device``, ``pallas_records``,
-    ``pallas_resolve``); TPU-only ones (the compose machinery, the choice
-    of compress encoder) have no counterpart and are ignored; ``device``
-    keeps its default.
+    Shared knobs carry over, the route selectors among them (``pallas_decode``,
+    ``pallas_flat``, ``pure_device``, ``pallas_records``, ``pallas_resolve``,
+    ``flat_encode``); TPU-only ones (the compose machinery, the choice of
+    exact encoder) have no counterpart and are ignored; ``device`` keeps its
+    default.
     """
     return Config(
         **{ours: fields[theirs] for theirs, ours in _REFERENCE_FIELDS.items()}

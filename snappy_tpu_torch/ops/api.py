@@ -68,6 +68,7 @@ from .crc32c import crc32c_masked_blocks
 from .decode import decode_batch, decode_batch_hosted, decode_crc_batch, decode_crc_batch_hosted
 from .decode_flat import decode_flat
 from .encode import compress_blocks_host
+from .encode_fast import compress_blocks_fast_host
 from .encode_flat import compress_blocks_flat_host
 from .records import decode_records
 from .replay import OK, decode_replay
@@ -142,10 +143,13 @@ def compress(
     ``profile="exact"`` (the default) runs the reference's greedy
     automaton per block (K7): byte for byte the reference encoder's
     stream and the JAX package's ``ops.api.compress(data)``.
-    ``profile="fast"`` runs the flat encoder (K4, K5): byte for byte the
-    JAX package's ``compress(data, profile="fast")`` with its flat
-    encoder, valid Snappy, at most the reference encoder's size on real
-    data. The host splits the input into 64 KiB blocks, launches them in
+    ``profile="fast"`` takes the encoder ``Config.flat_encode`` selects:
+    the flat encoder (K4, K5) under ``True`` or ``None``, the fast profile
+    in tensor ops (``ops/encode_fast.py``) under ``False``; byte for byte
+    the JAX package's ``compress(data, profile="fast")`` under the same
+    setting (its ``None`` means flat on its TPU, which the card stands in
+    for). Both give valid Snappy, at most the reference encoder's size on
+    real data. The host splits the input into 64 KiB blocks, launches them in
     batches of ``Config.blocks_per_launch`` rows (padded to a power of
     two), and joins the varint preamble and each block's op stream.
     """
@@ -158,7 +162,8 @@ def compress(
     if profile == "exact":
         codec = compress_blocks_host
     elif profile == "fast":
-        codec = compress_blocks_flat_host
+        flat = get_config().flat_encode is not False
+        codec = compress_blocks_flat_host if flat else compress_blocks_fast_host
     else:
         raise ValueError(f"unknown profile {profile!r}")
 

@@ -1,5 +1,5 @@
-"""Flat-gather decode over host-flattened indices: kernels K2
-(``csrc/flat_gather.cu``) and K11 (``csrc/flat_grouped.cu``).
+"""Flat-gather decode over host-flattened indices: kernels K2 and K11,
+one CUDA kernel with two entry points (``csrc/flat_gather.cu``).
 
 The host flatten (``native.flatten_idx_batch``) turns every copy chain
 into the index of the literal byte it reads, relative to its 1024-byte
@@ -7,11 +7,12 @@ tile's window base row. Decode is then one gather::
 
     out[b, d] = src[b, tile_meta[b, d >> 10, 0] * 128 + idx[b, phys(d)]]
 
-for ``d < declens[b]``, and 0 up to ``d_pad``. ``layout=0`` keeps ``idx``
-in output order (``phys(d) = d``); ``layout=1`` is the transposed block
-order the flatten writes for widths that are whole 16 KiB groups
-(:func:`phys_index`). The bucket column of ``tile_meta`` only sized the
-TPU kernels' matrix-unit windows and K2 ignores it.
+for ``d < declens[b]`` and a position inside the row, and 0 up to
+``d_pad``. ``layout=0`` keeps ``idx`` in output order (``phys(d) = d``);
+``layout=1`` is the transposed block order the flatten writes for widths
+that are whole 16 KiB groups (:func:`phys_index`). The bucket column of
+``tile_meta`` only sized the TPU kernels' matrix-unit windows and K2
+ignores it.
 
 K11, :func:`decode_flat_grouped`, is the JAX package's v3/v4 entry
 (``decode_flat_pallas_v3``/``_v4``): ``layout=1`` with one window bucket
@@ -51,16 +52,39 @@ def phys_index(d, layout: int):
     return (d >> 14 << 14) | ((d & 127) << 7) | (((d >> 10) & 15) << 3) | ((d >> 7) & 7)
 
 
+def _reads(s: int, idx, tile_meta, declens, d_pad: int, layout: int, window=None):
+    """``(p, ok)``, both ``(B, d_pad)``: the source position each output
+    byte reads, and whether it reads it (``d < declen``, ``0 <= p < s`` and,
+    given a per-byte ``window`` of rows, ``idx >> 7 < window``)."""
+    d = torch.arange(d_pad, device=idx.device)
+    rel = idx.to(torch.int64)[:, phys_index(d, layout)] & 0xFFFF
+    p = tile_meta[:, :, 0].to(torch.int64).repeat_interleave(1024, dim=1) * 128 + rel
+    ok = (p >= 0) & (p < s) & (d[None, :] < declens.to(torch.int64)[:, None])
+    if window is not None:
+        ok &= (rel >> 7) < window
+    return p, ok
+
+
 def decode_flat_plain(srcs, idx, tile_meta, declens, d_pad: int, layout: int):
     """The gather in PyTorch ops, on any device."""
-    b, s = srcs.shape
-    d = torch.arange(d_pad, device=srcs.device)
-    rel = idx.to(torch.int64)[:, phys_index(d, layout)] & 0xFFFF
-    base = tile_meta[:, :, 0].to(torch.int64).repeat_interleave(1024, dim=1) * 128
-    pos = base + rel
-    val = srcs.gather(1, pos.clamp(max=s - 1))
-    live = (pos < s) & (d[None, :] < declens.to(torch.int64)[:, None])
-    return torch.where(live, val, 0).to(torch.uint8)
+    s = srcs.shape[1]
+    p, ok = _reads(s, idx, tile_meta, declens, d_pad, layout)
+    val = srcs.gather(1, p.clamp(0, s - 1))
+    return torch.where(ok, val, 0).to(torch.uint8)
+
+
+def _cuda_checks(tensors, b: int, s: int) -> None:
+    """What the kernel takes beyond the shapes: ``tensors`` (``srcs`` and
+    ``idx`` first) on the card and contiguous, ``idx`` 16-byte aligned (it
+    is read 16 bytes at a time), rows below 1 GiB (32-bit positions)."""
+    if tensors[0].device.type != "cuda":
+        raise ValueError(f"unsupported device {tensors[0].device}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("inputs must be contiguous")
+    if tensors[1].data_ptr() % 16 or s >= 1 << 30:
+        raise ValueError(f"idx must be 16-byte aligned and rows below 1 GiB, got {s} bytes")
+    if b > 65535:
+        raise ValueError(f"{b} rows exceed one launch's grid")
 
 
 @functools.cache
@@ -97,12 +121,7 @@ def decode_flat(srcs, idx, tile_meta, declens, d_pad: int, layout: int):
         raise ValueError("all inputs must be on one device")
     if srcs.device.type == "cpu":
         return decode_flat_plain(srcs, idx, tile_meta, declens, d_pad, layout)
-    if srcs.device.type != "cuda":
-        raise ValueError(f"unsupported device {srcs.device}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("inputs must be contiguous")
-    if b > 65535:
-        raise ValueError(f"{b} rows exceed one launch's grid")
+    _cuda_checks(tensors, b, s)
     out = torch.empty((b, d_pad), dtype=torch.uint8, device=srcs.device)
     if b == 0 or d_pad == 0:
         return out
@@ -144,28 +163,27 @@ def window_rows(s_rows: int) -> list[int]:
     return [-(-min(w, s_rows) // 128) * 128 for w in NOMINAL_WINDOWS]
 
 
+def _group_window(gbuck, s_rows: int, variant: int):
+    """Window rows of every output byte under K11's buckets, ``(B, d_pad)``:
+    0 in a dead group."""
+    gb = gbuck.to(torch.int64)
+    live = (gb >= 0) & (gb <= 2) if variant == 3 else gb >= 0
+    widths = torch.tensor(window_rows(s_rows), device=gbuck.device)
+    return torch.where(live, widths[gb.clamp(0, 2)], 0).repeat_interleave(GROUP, dim=1)
+
+
 def decode_flat_grouped_plain(srcs, idx, tile_meta, gbuck, declens, d_pad: int, variant: int):
     """K11's gather in PyTorch ops, on any device."""
-    b, s = srcs.shape
-    s_rows = s // 128
-    d = torch.arange(d_pad, device=srcs.device)
-    rel = idx.to(torch.int64)[:, phys_index(d, 1)] & 0xFFFF
-    row = rel >> 7
-    gb = gbuck.to(torch.int64).repeat_interleave(GROUP, dim=1)
-    live = (gb >= 0) & (gb <= 2) if variant == 3 else gb >= 0
-    widths = torch.tensor(window_rows(s_rows), device=srcs.device)
-    r = tile_meta[:, :, 0].to(torch.int64).repeat_interleave(1024, dim=1) + row
-    ok = (
-        live & (row < widths[gb.clamp(0, 2)]) & (r >= 0) & (r < s_rows)
-        & (d[None, :] < declens.to(torch.int64)[:, None])
-    )
-    val = srcs.gather(1, (r * 128 + (rel & 127)).clamp(0, s - 1))
+    s = srcs.shape[1]
+    window = _group_window(gbuck, s // 128, variant)
+    p, ok = _reads(s, idx, tile_meta, declens, d_pad, 1, window)
+    val = srcs.gather(1, p.clamp(0, s - 1))
     return torch.where(ok, val, 0).to(torch.uint8)
 
 
 @functools.cache
 def _grouped_kernel():
-    fn = _build.kernel_lib("flat_grouped").stpu_cuda_flat_grouped
+    fn = _build.kernel_lib("flat_gather").stpu_cuda_flat_grouped
     p, i64, cint = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     fn.argtypes = [p, i64, i64, p, p, p, p, i64, cint, cint, cint, cint, p, p]
     fn.restype = ctypes.c_int
@@ -205,12 +223,7 @@ def decode_flat_grouped(srcs, idx, tile_meta, gbuck, declens, d_pad: int, varian
         raise ValueError("all inputs must be on one device")
     if srcs.device.type == "cpu":
         return decode_flat_grouped_plain(srcs, idx, tile_meta, gbuck, declens, d_pad, variant)
-    if srcs.device.type != "cuda":
-        raise ValueError(f"unsupported device {srcs.device}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("inputs must be contiguous")
-    if b > 65535:
-        raise ValueError(f"{b} rows exceed one launch's grid")
+    _cuda_checks(tensors, b, s)
     out = torch.empty((b, d_pad), dtype=torch.uint8, device=srcs.device)
     if b == 0 or d_pad == 0:
         return out

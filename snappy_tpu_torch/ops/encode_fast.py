@@ -2,8 +2,9 @@
 reference's bytes).
 
 The port of the JAX package's ``ops/encode_fast.py``; it has no Pallas
-kernel. It is the frame encoder's ``fast=True`` codec and the flat
-encoder's route for a block it flags. Per 64 KiB block:
+kernel. It is ``compress(profile="fast")``'s codec under
+``Config.flat_encode=False``, the frame encoder's ``fast=True`` codec and
+the flat encoder's route for a block it flags. Per 64 KiB block:
 
 1. **Previous-occurrence candidates**: every position's nearest previous
    occurrence of its 4-gram, for all positions at once, from one sort of
@@ -22,11 +23,12 @@ The ops go through the exact encoder's serializer
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..format.constants import MIN_NON_LITERAL_BLOCK_SIZE
 from .encode import MAX_OPS, S, serialize_ops, u32_plane
-from .encode_flat import _prev_two_sorts, _rev_cummin
+from .encode_flat import _no_span, _prev_two_sorts, _rev_cummin
 from .parse import _tz_bytes
 
 _MAX_COPY = 256  # per-op match cap; the serializer peels 64-byte copy tags
@@ -129,3 +131,18 @@ def compress_blocks_fast(blocks, lengths):
         return buf.scatter_(1, tgt, vals)[:, :MAX_OPS]
 
     return serialize_ops(blocks, scat_ops(kind_v), scat_ops(a_v), scat_ops(b_v), nops)
+
+
+def compress_blocks_fast_host(blocks: np.ndarray, lengths: np.ndarray, device, span=_no_span):
+    """Host-facing wrapper (the JAX package's ``compress_blocks_fast_host``):
+    numpy blocks and lengths in, numpy ``(out, out_len)`` out, computed on
+    ``device``. ``span(name, device)`` times the copies (``h2d``, ``d2h``)
+    and the tensor ops (``tensor``); the API passes its timer."""
+    dev = torch.device(device)
+    with span("h2d"):
+        blocks_t = torch.from_numpy(np.ascontiguousarray(blocks, np.uint8)).to(dev)
+        lens_t = torch.from_numpy(np.asarray(lengths, np.int32)).to(dev)
+    with span("tensor", dev):
+        out, out_len = compress_blocks_fast(blocks_t, lens_t)
+    with span("d2h"):
+        return out.cpu().numpy(), out_len.cpu().numpy()

@@ -5,8 +5,11 @@ files (names, bytes, and whether they carry their source's times) must
 agree: compress and decompress with and
 without ``-k`` and ``-f``, ``--raw``, ``--resume`` after a cut, stdin to
 stdout, and the messages of skipped files and corrupt inputs. The port
-runs with the host engines and with ``device`` on the CPU
-(``configure(device="cpu")``, the kernels' plain versions)."""
+runs with the host engines and with ``device`` and ``device-fast`` on the
+CPU (``configure(device="cpu")``, the kernels' plain versions). The JAX
+package runs under ``flat_encode=True``: the port's default (``None``)
+takes the flat encoder for ``device-fast``, as the JAX package's does only
+on a TPU."""
 
 import io
 import os
@@ -17,6 +20,7 @@ import types
 
 import pytest
 
+import snappy_tpu
 from conftest import load_corpus
 from snappy_tpu.cli import szip as jax_szip
 from snappy_tpu_torch.cli import szip
@@ -26,7 +30,7 @@ from torch_vectors import REPO, hold_jax_native, share_cores_with_workers
 share_cores_with_workers()
 hold_jax_native()
 
-ENGINES = ["auto", "native", "reference", "device"]
+ENGINES = ["auto", "native", "reference", "device", "device-fast"]
 TEXT = load_corpus("alice29.txt")[:30000]
 # Past 64 KiB, so that the device engine's frame writer takes the card's
 # path; a short pattern keeps the CPU's plain encoder quick.
@@ -107,7 +111,7 @@ def test_cli_matches_jax_package(engine, scenario, tmp_path, monkeypatch, capsys
         monkeypatch.chdir(d)
 
         def run(args, main=main):
-            with configure(device="cpu"):
+            with configure(device="cpu"), snappy_tpu.configure(flat_encode=True):
                 rc = main(["--engine", engine, *args])
             return rc, capsys.readouterr().err
 
@@ -123,7 +127,7 @@ def _pipe(main, args, data):
     sys.stdin = types.SimpleNamespace(buffer=io.BytesIO(data))
     sys.stdout = types.SimpleNamespace(buffer=out)
     try:
-        with configure(device="cpu"):
+        with configure(device="cpu"), snappy_tpu.configure(flat_encode=True):
             assert main(args) == 0
     finally:
         sys.stdin, sys.stdout = monkey

@@ -22,7 +22,8 @@ from snappy_tpu_torch.ops import (
     replay, resolve,
 )
 from torch_vectors import (
-    CORRUPT, fallback_row, overlap_rows, raw_body, resolve_cases, scan_batch,
+    CORRUPT, fallback_row, literal, overlap_rows, raw_body, resolve_cases, scan_batch,
+    wide_stream,
 )
 
 pytestmark = pytest.mark.gpu
@@ -72,48 +73,70 @@ def test_crc32c_kernel_matches_plain(dev):
     assert torch.equal(got, crc32c.crc32c_plain(odd, lens.clamp(max=4000), False))
 
 
-@pytest.mark.parametrize("layout", [0, 1])
-def test_flat_gather_kernel_matches_plain(dev, layout):
-    datas = CHUNKS if layout else [d[:7000] for d in CHUNKS]
-    bodies = _bodies(datas)
-    srcs, lens = packing.batch_streams(bodies)
-    declens = np.asarray([len(d) for d in datas], np.int32)
-    d_pad = 65536 if layout else 7168
+def _flat_cases(layout):
+    """K2's inputs from the host flatten, ``(name, rows, d_pad, width)``
+    with ``rows`` ``[(body, declen)]``: corpus chunks; the wide stream
+    (a body past 64 KiB, ``d_pad`` up to 1 MiB, units that read source bytes
+    60 KiB apart); rows of the 81,920-byte width (incompressible 64 KiB
+    chunks) beside a corpus row and a row with declen 0."""
+    corpus = [raw_body(d if layout else d[:7000]) for d in CHUNKS]
+    noise = np.random.default_rng(3).integers(0, 256, 65536, dtype=np.uint8).tobytes()
+    wide = wide_stream(16) if layout else wide_stream(15)
+    if not layout:
+        wide = (wide[0] + literal(bytes(range(200)) * 5), wide[1] + 1000)
+    return [
+        ("corpus", corpus, 65536 if layout else 7168, None),
+        ("wide", [wide], -(-wide[1] // 1024) * 1024, None),
+        ("rows_81920", [raw_body(noise), raw_body(noise[::-1]), corpus[0], (b"", 0)],
+         65536 if layout else 66560, 81920),
+    ]
+
+
+def _flatten(rows, d_pad, layout, width):
+    srcs, lens = packing.batch_streams([b for b, _ in rows], width)
+    declens = np.asarray([n for _, n in rows], np.int32)
     idx, tmeta, fallb, errs, _ = native.flatten_idx_batch(
         srcs, lens.astype(np.uint64), declens.astype(np.uint64), d_pad, layout=layout
     )
     assert not fallb.any() and not errs.any()
-    a = [torch.from_numpy(x).to(dev) for x in (srcs, idx.view(np.int16), tmeta, declens)]
-    before = decode_flat.layout_launches[layout]
-    got = decode_flat.decode_flat(*a, d_pad, layout)
-    torch.cuda.synchronize()
-    assert decode_flat.layout_launches[layout] == before + 1
-    assert torch.equal(got, decode_flat.decode_flat_plain(*a, d_pad, layout))
-    host = got.cpu().numpy()
-    for i, d in enumerate(datas):
-        assert host[i, : len(d)].tobytes() == d and not host[i, len(d):].any()
+    return srcs, idx, tmeta, declens
+
+
+@pytest.mark.parametrize("layout", [0, 1])
+def test_flat_gather_kernel_matches_plain(dev, layout):
+    for name, rows, d_pad, width in _flat_cases(layout):
+        assert (d_pad % 16384 == 0) == bool(layout), name
+        srcs, idx, tmeta, declens = _flatten(rows, d_pad, layout, width)
+        a = [torch.from_numpy(x).to(dev) for x in (srcs, idx.view(np.int16), tmeta, declens)]
+        before = decode_flat.layout_launches[layout]
+        got = decode_flat.decode_flat(*a, d_pad, layout)
+        torch.cuda.synchronize()
+        assert decode_flat.layout_launches[layout] == before + 1
+        assert torch.equal(got, decode_flat.decode_flat_plain(*a, d_pad, layout)), name
+        host = got.cpu().numpy()
+        for i, (body, declen) in enumerate(rows):
+            want = native.decompress(write_varu64(declen) + body)
+            assert host[i, :declen].tobytes() == want and not host[i, declen:].any(), name
 
 
 def test_flat_grouped_kernel_matches_plain(dev):
-    """K11, v3 and v4, against its plain version: on corpus rows at 64 KiB
-    with the flatten's buckets (also K2's bytes and the data), with a
+    """K11, v3 and v4, against its plain version: on corpus rows at 64 KiB,
+    the wide stream at 1 MiB and rows of the 81,920-byte width (with a row
+    of declen 0), with the flatten's buckets (also K2's bytes) and with a
     hand-made bucket plane (a live group marked dead, a 3, the groups of
     wider tiles cut to the narrow window), and on a batch of 2 KiB rows
     (``s_rows`` 16, under every window)."""
-    cases = [(CHUNKS, 65536, None), ([b"z" * 30000, (b"pattern!" * 4000)[:32000]], 32768, 2048)]
-    for datas, d_pad, width in cases:
-        srcs, lens = packing.batch_streams(_bodies(datas), width)
-        declens = np.asarray([len(d) for d in datas], np.int32)
-        idx, tmeta, fallb, errs, _ = native.flatten_idx_batch(
-            srcs, lens.astype(np.uint64), declens.astype(np.uint64), d_pad, layout=1
-        )
-        assert not fallb.any() and not errs.any()
+    narrow = [raw_body(d) for d in (b"z" * 30000, (b"pattern!" * 4000)[:32000])]
+    cases = [(rows, d_pad, width) for _, rows, d_pad, width in _flat_cases(1)]
+    for rows, d_pad, width in [*cases, (narrow, 32768, 2048)]:
+        srcs, idx, tmeta, declens = _flatten(rows, d_pad, 1, width)
         s_t, i_t, m_t, d_t = (torch.from_numpy(x).to(dev)
                               for x in (srcs, idx.view(np.int16), tmeta, declens))
         gb = decode_flat.group_buckets(m_t, d_t, d_pad)
         hand = gb.clone()
         hand[gb > 0] = 0
-        hand[0, 0], hand[1, 1] = -1, 3
+        hand[0, 0] = -1
+        hand[-1, min(1, hand.shape[1] - 1)] = 3
         k2 = decode_flat.decode_flat(s_t, i_t, m_t, d_t, d_pad, 1)
         for variant in (3, 4):
             for g in (gb, hand):
@@ -126,9 +149,10 @@ def test_flat_grouped_kernel_matches_plain(dev):
                 if g is gb:
                     assert torch.equal(got, k2)
             assert not got[0, :16384].any()
-    host = k2.cpu().numpy()
-    for i, d in enumerate(datas):
-        assert host[i, : len(d)].tobytes() == d and not host[i, len(d):].any()
+        host = k2.cpu().numpy()
+        for i, (body, declen) in enumerate(rows):
+            want = native.decompress(write_varu64(declen) + body)
+            assert host[i, :declen].tobytes() == want and not host[i, declen:].any()
 
 
 @pytest.mark.parametrize("cfg", [{"decode_kernels": False}, {"pure_device": True}],

@@ -153,3 +153,16 @@ def raw_body(data: bytes) -> tuple[bytes, int]:
 
     c = native.compress(data)
     return c[read_varu64(c)[1]:], len(data)
+
+
+def wide_stream(n_blocks: int, seed: int = 5) -> tuple[bytes, int]:
+    """A raw body past 64 KiB (``n_blocks`` of 64 KiB of output) whose 16
+    KiB output units read source bytes 60 KiB apart: per block, a literal of
+    60 KiB of random bytes, 32 copies of 64 bytes that reach back 60 KiB,
+    and a literal of 2 KiB. Returns ``(body, declen)``."""
+    rng = np.random.default_rng(seed)
+    body = b""
+    for _ in range(n_blocks):
+        body += literal(rng.integers(0, 256, 61440, dtype=np.uint8).tobytes())
+        body += copy2(61440, 64) * 32 + literal(rng.integers(0, 256, 2048, dtype=np.uint8).tobytes())
+    return body, n_blocks * 65536
