@@ -70,7 +70,14 @@ calls back to back, the host's cost per call included.
 K7, the exact encoder, is held against its plain version (a Python loop
 of small launches per automaton step) on 8 corpus blocks and timed on the
 compress path's launch group; the plain version also counts every
-block's automaton steps there, K7's serial bound.
+block's automaton steps there, K7's serial bound, and the host's copy of
+K7's walk (``encode.find_ops_rounds``) counts the scan rounds and
+extension quanta K7 takes on the busiest block and the 8 blocks. K10's
+row carries the rounds of pointer doubling its group takes, window by
+window as its CTA path takes them (``records.window_rounds``). K7's and
+K10's ``ms`` is device-only, their C entries' calls captured in a CUDA
+graph as K2's are (their wrappers read lengths back to check them, which
+a graph cannot hold), and ``call_ms`` over wrapper calls.
 
 It prints one ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Details go to
@@ -659,22 +666,54 @@ def main() -> int:
         "scan_max": int(scan_steps.max()), "extend_max": int(extend_steps.max()),
         "count_s": time.perf_counter() - t0,
     }
+    # K7's own chain: scan rounds of up to 32 probes and 128-byte quanta
+    # (find_ops_rounds, the host's copy of its walk, about a second a block
+    # here), on the busiest block of the group and the 8 blocks above; the
+    # quanta of every block are the lockstep's extension steps.
+    busiest = int(steps.argmax())
+    picked = [busiest] + sample
+    *_, r_rounds, r_quanta, r_probes = encode.find_ops_rounds(cblocks[picked], clens[picked])
+    check(torch.equal(r_quanta, extend_steps[picked].cpu())
+          and torch.equal(r_probes, scan_steps[picked].cpu()),
+          "find_ops_rounds and find_ops_lockstep count different steps")
+    report["encode_rounds"] = {
+        "busiest_block": busiest, "busiest_rounds": int(r_rounds[0]),
+        "busiest_quanta": int(r_quanta[0]), "busiest_steps": int(steps[busiest]),
+        "sample_rounds": r_rounds[1:].tolist(), "sample_quanta": r_quanta[1:].tolist(),
+        "sample_steps": steps[sample].tolist(),
+    }
     t_bytes7 = (int(clens.sum()) + 4 * rows + rows * (encode.OUT_W + 4)) / PEAK_BYTES_PER_S * 1e3
     t_serial7 = int(steps.max()) / (sm_mhz * 1e6) * 1e3
+    # Timed device-only through K7's C entry (the wrapper reads the lengths
+    # back to check them, a host sync that a CUDA graph cannot hold), and
+    # over wrapper calls; the entry's bytes are the wrapper's.
+    o7 = torch.empty((rows, encode.OUT_W), dtype=torch.uint8, device=dev)
+    ol7 = torch.empty(rows, dtype=torch.int32, device=dev)
+
+    def k7_entry():
+        _build.check(encode._kernel()(cb.data_ptr(), cb.shape[1], cl.data_ptr(), rows, o7.data_ptr(),
+                                      ol7.data_ptr(), torch.cuda.current_stream().cuda_stream), "encode")
+
+    k7_ms = device_ms(k7_entry, 5)
+    w7, wl7 = encode.compress_blocks(cb, cl)
+    check(torch.equal(o7, w7) and torch.equal(ol7, wl7), "K7's C entry and its wrapper differ")
+    del o7, ol7, w7, wl7
     kernels.append({
         "name": "encode", "route": "cuda", "source": "snappy_tpu_torch/csrc/encode.cu",
         "replaces": "snappy_tpu/ops/pallas/encode.py:320 compress_blocks_pallas",
         "shape": [rows, 65536], "live_blocks": live_blocks, "equal": eq7,
         "max_abs_err": max(max_abs_err(g, w) for g, w in zip(got7, want7)),
-        "ms": cuda_ms(lambda: encode.compress_blocks(cb, cl), 5),
+        "ms": k7_ms, "call_ms": cuda_ms(lambda: encode.compress_blocks(cb, cl), 5),
         "plain_ms": plain7_ms, "plain_rows": len(sample),
         "ms_plain_rows": cuda_ms(lambda: encode.compress_blocks(sb, sl), 5),
         "bound_ms": max(t_bytes7, t_serial7),
         "bound_by": "bytes" if t_bytes7 >= t_serial7 else "operations",
         "bound_bytes_ms": t_bytes7, "bound_serial_ms": t_serial7,
-        "max_steps": report["encode_steps"]["max"], "library_ms": None,
+        "max_steps": report["encode_steps"]["max"],
+        "busiest_rounds": int(r_rounds[0]), "busiest_quanta": int(r_quanta[0]), "library_ms": None,
     })
-    print(f"K7: plain version on {len(sample)} blocks {plain7_ms:.1f} ms; steps {report['encode_steps']}")
+    print(f"K7: plain version on {len(sample)} blocks {plain7_ms:.1f} ms; steps "
+          f"{report['encode_steps']}; rounds {report['encode_rounds']}")
     del sb, sl, got7, want7
     del cb, jw, rec, plan, bp_rows, dlt_rows, src, out5, out6, idx6, idx_plain, want5, want6
     del absidx, padded, ref_out
@@ -712,6 +751,9 @@ def main() -> int:
     report["resolve_group"] = {"rows": len(big), "d_pad": d_pad, "records": n_rec,
                                "record_cap": rec_cap, "r_pad": r_pad,
                                "cross_tile_hops": cross_hops, "literal_bytes": lit_bytes}
+    w_rounds = records.window_rounds(s_t, r_t, n_t, d_t, d_pad)
+    report["resolve_group"]["window_rounds"] = {"max": int(w_rounds.max()),
+                                                "mean": float(w_rounds.double().mean())}
     got8 = resolve.resolve_fh(startsx, payload, d_t, d_pad)
     want8 = resolve.resolve_fh_plain(startsx, payload, d_t, d_pad)
     got9 = resolve.resolve(a0)
@@ -746,6 +788,20 @@ def main() -> int:
             "bound_with_hops_ms": bound_ms(nbytes + hop_bytes)[0],
         })
         check(kernels[-1]["equal"], f"{name} differs from its plain version")
+    # K10 device-only through its C entry (the wrapper reads the counts and
+    # lengths back to check them); "ms" above is over wrapper calls.
+    o10 = torch.empty((len(big), d_pad), dtype=torch.uint8, device=dev)
+
+    def k10_entry():
+        _build.check(records._kernel()(
+            s_t.data_ptr(), len(big), srcs.shape[1], r_t.data_ptr(), r_pad, n_t.data_ptr(),
+            d_t.data_ptr(), d_pad, o10.data_ptr(), torch.cuda.current_stream().cuda_stream), "records")
+
+    kernels[-1]["call_ms"] = kernels[-1]["ms"]
+    kernels[-1]["ms"] = device_ms(k10_entry, 10)
+    check(torch.equal(o10, got10), "K10's C entry and its wrapper differ")
+    kernels[-1]["window_rounds"] = report["resolve_group"]["window_rounds"]
+    del o10
     print(f"K8/K9/K10 group: {report['resolve_group']}, host scan "
           f"{report['scan_largest_group_s']:.4f} s")
     del s_t, r_t, n_t, d_t, startsx, payload, a0, tile0, valid_rec, w0

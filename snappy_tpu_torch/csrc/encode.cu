@@ -8,21 +8,42 @@
 // compares 128-byte rotated windows for the match extension and writes every
 // header byte as a masked read-modify-write of a 128-lane output row, all
 // because Mosaic has no scalar access to vector memory. None of that is
-// needed here: one warp per block, the block staged once as bytes in shared
-// memory and the 16 Ki-entry table beside it as uint16 positions (every
-// position is below 65,536). Every lane carries the same scalar state, so
-// control flow is uniform; only lane 0 touches the table and broadcasts what
-// it read, so no lane can see another's later store. The lanes share the
-// match extension (32 lanes x 4 bytes per step, __ballot_sync and __ffs for
-// the first difference), the copy of literal bytes to the output row and the
-// zero fill past out_len.
+// needed here: one warp per block, the 16 Ki-entry table in shared memory as
+// uint16 positions (every position is below 65,536), the block read where it
+// lies, through L1.
 //
-// What bounds it: the automaton is a serial chain per block (each probe's
-// table load decides the next position), so a block takes one step after
-// another whatever the card's width; device-memory bytes (each block read
-// once, each 76,800-byte output row written once) bound it only when the
-// blocks are many and their chains short. One 32-thread CTA uses 98,560 bytes
-// of shared memory, so two blocks run per SM.
+// What bounds it: the automaton is a serial chain per block, so a block
+// takes one step after another whatever the card's width, and each step is
+// a few dependent loads; device-memory bytes (each block read once, each
+// 76,800-byte output row written once) bound it only when the blocks are
+// many and their chains short. So the design shortens the chain and runs
+// as many chains at once as shared memory allows: with only the table
+// (33 KB) in shared memory six blocks run per SM. Staging the block beside
+// it (99 KB, two per SM) made each chain faster and the group slower
+// (encode_records_probe.py keeps that design as text).
+//
+// Design: the warp takes the scan 32 probes at a time. After every
+// (re)start skip is 32 and probe k of the run advances skip >> 5, so the
+// run's positions r + A[k] are known in advance (A, the cumulative
+// advances, sits in shared memory). In a round lane j probes r + A[k0 + j]
+// and exists while r + A[k0 + j + 1] <= s_limit; the first matching lane
+// (__ballot_sync) ends it, and the lanes up to it store their positions.
+// The round speculates that its lanes' hashes differ: each lane's candidate
+// is its own table entry, and the storing lanes read their slots back. A
+// lane that finds another's position (two lanes of one hash) sends the round
+// down the exact path: the stores undone, __match_any_sync gives each lane
+// the highest earlier lane of its hash, whose position is the candidate the
+// serial loop would have read, and a lane stores only when no later storing
+// lane shares its hash, so the table ends as the serial stores leave it.
+// After a copy ending at s, the re-match probe at s is made alone, as the
+// serial loop makes it (h(s - 1) <- s - 1, then the swap at h(s)), and a
+// miss restarts the run from s + 1 (folding it into lane 0 of the next
+// round was slower, and so was taking every round down the exact path).
+// Words are built from two aligned 32-bit loads and a funnel shift. The
+// lanes share the match extension (32 lanes x 4 bytes a quantum,
+// __ballot_sync and __ffs for the first difference), the copy of literal
+// bytes to the output row and the zero fill past out_len. ops/encode.py
+// find_ops_rounds is this walk on the host.
 //
 // Semantics kept bit for bit (snappy_tpu/ops/encode.py find_ops and
 // serialize_ops, src/compress.rs:195-317 of the reference): table bits
@@ -42,20 +63,25 @@
 namespace {
 
 constexpr int kOutW = 76800;
-constexpr int kMaxS = 65536;
-// The block, then zeros: an extension step reads up to 131 bytes past es <= n.
-constexpr int kSrcCap = kMaxS + 256;
 constexpr int kTable = 1 << 14;
-constexpr int kSmem = kSrcCap + kTable * 2;
+// A[k] for every probe a run within 64 KiB can reach, and a round of lanes more
+// (ops/encode.py ADVANCE).
+constexpr int kAdvance = 299;
 constexpr uint32_t kHashMul = 0x1E35A7BDu;
 constexpr int kInputMargin = 15;
 constexpr int kMinNonLiteral = 17;
 constexpr int kQuantum = 128;  // bytes compared per extension step
+constexpr int kLanes = 32;
 constexpr unsigned kFull = 0xFFFFFFFFu;
+// The table and A; the block is read in place, through L1.
+constexpr int kSmem = kTable * 2 + kAdvance * 4;
 
-__device__ __forceinline__ uint32_t u32_at(const uint8_t* s, int pos) {
-  return uint32_t{s[pos]} | uint32_t{s[pos + 1]} << 8 | uint32_t{s[pos + 2]} << 16 |
-         uint32_t{s[pos + 3]} << 24;
+// The little-endian word at byte p, from two aligned words. Words past the
+// row's last are taken as that one (only an extension reads past n, and it
+// is clipped there).
+__device__ __forceinline__ uint32_t u32_at(const uint32_t* w, int last_word, int p) {
+  return __funnelshift_r(__ldg(w + min(p >> 2, last_word)), __ldg(w + min((p >> 2) + 1, last_word)),
+                         (p & 3) * 8);
 }
 
 // The output row and its write position; d is the same in every lane.
@@ -83,7 +109,7 @@ struct Emitter {
       byte(m & 0xFF);
       byte(m >> 8);
     }
-    for (int k = lane; k < len; k += 32) row[d + k] = src[start + k];
+    for (int k = lane; k < len; k += kLanes) row[d + k] = src[start + k];
     d += len;
   }
 
@@ -113,8 +139,9 @@ struct Emitter {
 
 // Bytes equal from es and ec on, up to kQuantum: lane i compares bytes
 // [4i, 4i + 4).
-__device__ __forceinline__ int first_difference(const uint8_t* src, int es, int ec, int lane) {
-  const uint32_t x = u32_at(src, es + 4 * lane) ^ u32_at(src, ec + 4 * lane);
+__device__ __forceinline__ int first_difference(const uint32_t* w, int last_word, int es, int ec,
+                                                int lane) {
+  const uint32_t x = u32_at(w, last_word, es + 4 * lane) ^ u32_at(w, last_word, ec + 4 * lane);
   const unsigned lanes = __ballot_sync(kFull, x != 0);
   if (lanes == 0) return kQuantum;
   const int f = __ffs(static_cast<int>(lanes)) - 1;
@@ -122,105 +149,134 @@ __device__ __forceinline__ int first_difference(const uint8_t* src, int es, int 
   return 4 * f + ((__ffs(static_cast<int>(xf)) - 1) >> 3);
 }
 
-__global__ void __launch_bounds__(32)
+__global__ void __launch_bounds__(kLanes)
 encode_kernel(const uint8_t* __restrict__ blocks, int64_t row_w,
               const int32_t* __restrict__ lens, uint8_t* __restrict__ out,
               int32_t* __restrict__ out_len) {
   extern __shared__ uint4 smem_words[];
-  uint8_t* src = reinterpret_cast<uint8_t*>(smem_words);
-  uint16_t* table = reinterpret_cast<uint16_t*>(src + kSrcCap);
   const int64_t b = blockIdx.x;
   const int lane = threadIdx.x;
   const int n = lens[b];
+  const uint8_t* g = blocks + b * row_w;
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(g);
+  const int last_word = static_cast<int>(row_w / 4) - 1;
+  uint16_t* table = reinterpret_cast<uint16_t*>(smem_words);
+  int* advance = reinterpret_cast<int*>(table + kTable);
 
-  // Stage the block's n bytes and zeros up to kSrcCap; zero the table.
-  const uint4* g = reinterpret_cast<const uint4*>(blocks + b * row_w);
-  for (int w = lane; w < kSrcCap / 16; w += 32) {
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (16 * w < n) {
-      v = g[w];
-      if (16 * w + 16 > n) {  // the last partial word: keep bytes below n
-        uint8_t* vb = reinterpret_cast<uint8_t*>(&v);
-        for (int k = n - 16 * w; k < 16; k++) vb[k] = 0;
-      }
-    }
-    smem_words[w] = v;
-  }
-  uint4* tw = reinterpret_cast<uint4*>(table);
-  for (int w = lane; w < kTable * 2 / 16; w += 32) tw[w] = make_uint4(0, 0, 0, 0);
-  __syncwarp();
-
-  Emitter e{out + b * kOutW, src, 0, lane};
+  Emitter e{out + b * kOutW, g, 0, lane};
   if (n < kMinNonLiteral) {
     if (n > 0) e.literal(0, n);
   } else {
+    // The table is zeroed while lane 0 tabulates the run advances.
+    uint4* tw = reinterpret_cast<uint4*>(table);
+    for (int w = lane; w < kTable * 2 / 16; w += kLanes) tw[w] = make_uint4(0, 0, 0, 0);
+    if (lane == 0) {
+      int a = 0, skip = 32;
+      for (int k = 0; k < kAdvance; ++k) {
+        advance[k] = a;
+        a += skip >> 5;
+        skip += skip >> 5;
+      }
+    }
+    __syncwarp();
+
     const int bits = min(max(32 - __clz(static_cast<unsigned>(max(n - 1, 1))), 8), 14);
     const unsigned shift = 32 - bits;
     auto hash = [shift](uint32_t x) { return static_cast<int>((x * kHashMul) >> shift); };
     const int s_limit = n - kInputMargin;
+    const unsigned below = (1u << lane) - 1;  // the lanes before this one
 
-    bool extending = false;
-    int s_next = 1, skip = 32, next_emit = 0, next_hash = hash(u32_at(src, 1));
-    int base = 0, es = 0, ec = 0, cand = 0;
+    // The scan run: lane j of a round probes run + A[k0 + j].
+    int next_emit = 0, run = 1, k0 = 0;
+    int s = -1, c = 0;  // a match the re-match probe found, else s < 0
     while (true) {
-      if (!extending) {
-        const int s = s_next;
-        const int bb = skip >> 5;
-        s_next = s + bb;
-        skip += bb;
-        if (s_next > s_limit) {
+      if (s < 0) {
+        const int k = k0 + lane;
+        int pos, next;
+        if (k0 == 0) {  // A[k] = k for k <= 32
+          pos = run + k;
+          next = pos + 1;
+        } else {
+          pos = run + advance[min(k, kAdvance - 1)];
+          next = run + advance[min(k + 1, kAdvance - 1)];
+        }
+        const bool valid = next <= s_limit;
+        pos = min(pos, n);  // a lane past the run probes inside the row
+        const unsigned live = __ballot_sync(kFull, valid);
+        const uint32_t cur = u32_at(words, last_word, pos);
+        const int h = hash(cur);
+        const int old = table[h];
+        // Speculate that no two lanes of the round share a hash: each lane's
+        // candidate is then its table entry.
+        int cand = old;
+        unsigned hits = __ballot_sync(kFull, valid && cur == u32_at(words, last_word, cand));
+        int last = hits ? __ffs(static_cast<int>(hits)) - 1 : 31 - __clz(static_cast<int>(live));
+        // The lanes up to the first match store, then read back: a lane that
+        // finds another's position lost its slot to a lane of the same hash.
+        if (lane <= last) table[h] = static_cast<uint16_t>(pos);
+        __syncwarp();
+        // A round with one storing lane has no clash.
+        const unsigned clash = last > 0 ? __ballot_sync(kFull, lane <= last && table[h] != pos) : 0u;
+        if (clash) {
+          // Undo the stores, then take the round exactly: lane j's candidate
+          // is the position of the highest earlier live lane of its hash.
+          if (lane <= last) table[h] = static_cast<uint16_t>(old);
+          __syncwarp();
+          const unsigned same = __match_any_sync(kFull, h);
+          const unsigned peers = same & live & below;
+          const int peer_pos = __shfl_sync(kFull, pos, peers ? 31 - __clz(static_cast<int>(peers)) : 0);
+          if (peers) cand = peer_pos;
+          hits = __ballot_sync(kFull, valid && cur == u32_at(words, last_word, cand));
+          last = hits ? __ffs(static_cast<int>(hits)) - 1 : kLanes - 1;
+          // A lane stores only when no later storing lane shares its hash.
+          const unsigned storing = (2u << last) - 1;
+          if (lane <= last && ((same & storing) >> lane) == 1u) table[h] = static_cast<uint16_t>(pos);
+          __syncwarp();
+        }
+        if (hits == 0 && live != kFull) {  // the run passes s_limit first
           if (next_emit < n) e.literal(next_emit, n);
           break;
         }
-        int c = 0;
-        if (lane == 0) {
-          c = table[next_hash];
-          table[next_hash] = static_cast<uint16_t>(s);
+        if (hits == 0) {
+          k0 += kLanes;
+          continue;
         }
-        c = __shfl_sync(kFull, c, 0);
-        next_hash = hash(u32_at(src, s_next));
-        if (u32_at(src, s) == u32_at(src, c)) {
-          if (s > next_emit) e.literal(next_emit, s);
-          extending = true;
-          base = s;
-          es = s + 4;
-          ec = c + 4;
-          cand = c;
-        }
-        continue;
+        s = __shfl_sync(kFull, pos, last);
+        c = __shfl_sync(kFull, cand, last);
+        if (s > next_emit) e.literal(next_emit, s);
       }
-      const int first = first_difference(src, es, ec, lane);
-      const int ext = min(first, n - es);
-      es += ext;
-      ec += ext;
-      if (first == kQuantum && ext == first) continue;
-      e.copy(base - cand, es - base);
-      const int s = es;
-      next_emit = s;
-      if (s >= s_limit) {
-        if (s < n) e.literal(s, n);
+      int es = s + 4, ec = c + 4;
+      while (true) {
+        const int first = first_difference(words, last_word, es, ec, lane);
+        const int ext = min(first, n - es);
+        es += ext;
+        ec += ext;
+        if (first < kQuantum || ext < first) break;
+      }
+      e.copy(s - c, es - s);
+      next_emit = es;
+      if (es >= s_limit) {
+        if (es < n) e.literal(es, n);
         break;
       }
-      const int h1 = hash(u32_at(src, s - 1));
-      const uint32_t cur = u32_at(src, s);
+      s = -1;
+      run = es + 1;
+      k0 = 0;
+      // The re-match probe alone, as the serial loop makes it: every lane
+      // reads the slot, then lane 0 stores h(es - 1) <- es - 1 and h(es) <- es.
+      const int h1 = hash(u32_at(words, last_word, es - 1));
+      const uint32_t cur = u32_at(words, last_word, es);
       const int h = hash(cur);
-      int c = 0;
+      const int c2 = h == h1 ? es - 1 : table[h];
+      __syncwarp();
       if (lane == 0) {
-        table[h1] = static_cast<uint16_t>(s - 1);
-        c = table[h];
-        table[h] = static_cast<uint16_t>(s);
+        table[h1] = static_cast<uint16_t>(es - 1);
+        table[h] = static_cast<uint16_t>(es);
       }
-      c = __shfl_sync(kFull, c, 0);
-      if (cur == u32_at(src, c)) {
-        base = s;
-        es = s + 4;
-        ec = c + 4;
-        cand = c;
-      } else {
-        extending = false;
-        s_next = s + 1;
-        skip = 32;
-        next_hash = hash(u32_at(src, s + 1));
+      __syncwarp();
+      if (cur == u32_at(words, last_word, c2)) {
+        s = es;
+        c = c2;
       }
     }
   }
@@ -229,9 +285,9 @@ encode_kernel(const uint8_t* __restrict__ blocks, int64_t row_w,
   // Zero the row past out_len: bytes up to a 16-byte boundary, then words.
   uint8_t* row = e.row;
   const int d16 = min((e.d + 15) & ~15, kOutW);
-  for (int k = e.d + lane; k < d16; k += 32) row[k] = 0;
+  for (int k = e.d + lane; k < d16; k += kLanes) row[k] = 0;
   uint4* rw = reinterpret_cast<uint4*>(row);
-  for (int w = d16 / 16 + lane; w < kOutW / 16; w += 32) rw[w] = make_uint4(0, 0, 0, 0);
+  for (int w = d16 / 16 + lane; w < kOutW / 16; w += kLanes) rw[w] = make_uint4(0, 0, 0, 0);
 }
 
 }  // namespace
@@ -245,7 +301,7 @@ extern "C" int stpu_cuda_encode(const uint8_t* blocks, int64_t row_w, const int3
   cudaError_t e = cudaFuncSetAttribute(
       encode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  encode_kernel<<<static_cast<unsigned>(n_rows), 32, kSmem,
+  encode_kernel<<<static_cast<unsigned>(n_rows), kLanes, kSmem,
                   static_cast<cudaStream_t>(stream)>>>(blocks, row_w, lens, out, out_len);
   return static_cast<int>(cudaGetLastError());
 }

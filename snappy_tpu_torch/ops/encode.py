@@ -20,8 +20,9 @@ The plain version runs in two phases, as the JAX package does:
   synthesis with the reference's copy splitting and literal headers.
 
 :func:`compress_blocks` launches K7 for a CUDA tensor (one warp per block
-walks the same automaton and writes the bytes directly) and runs the
-plain version for a CPU tensor, and nothing else.
+walks the same automaton, its scan 32 probes a round, and writes the
+bytes directly; :func:`find_ops_rounds` follows that walk on the host)
+and runs the plain version for a CPU tensor, and nothing else.
 """
 
 from __future__ import annotations
@@ -215,6 +216,143 @@ def find_ops(blocks, lengths):
     """Phase 1: ``(op_kind, op_a, op_b, nops, overflow)`` as the JAX
     package's ``find_ops`` returns them (see :func:`find_ops_lockstep`)."""
     return find_ops_lockstep(blocks, lengths)[:5]
+
+
+# ---------------------------------------------------------------------------
+# K7's round structure, on the host
+# ---------------------------------------------------------------------------
+
+LANES = 32
+
+
+def _advance_table() -> np.ndarray:
+    """``A[k]``: how far probe ``k`` of a scan run lies from the run's
+    start. Every (re)start sets ``skip`` to 32 and probe ``k`` advances by
+    ``skip >> 5`` then grows ``skip`` by as much, whatever the data, so the
+    positions of a run are known before any probe is made. The table runs
+    until a run from position 1 passes any 64 KiB block, plus a round of
+    lanes."""
+    a, skip = [0], 32
+    while a[-1] <= S:
+        a.append(a[-1] + (skip >> 5))
+        skip += skip >> 5
+    for _ in range(LANES):
+        a.append(a[-1] + (skip >> 5))
+        skip += skip >> 5
+    return np.asarray(a, np.int64)
+
+
+ADVANCE = _advance_table()
+
+
+def _block_rounds(row: np.ndarray, n: int):
+    """One block's automaton as K7 walks it: ``(ops, rounds, quanta,
+    probes)``, ``probes`` the serial scan steps (:func:`find_ops_lockstep`'s
+    ``scan_steps``).
+
+    A scan round is one warp's 32 probes of a run at once: lane ``j``
+    probes ``r + A[k0 + j]`` and exists while the next position stays
+    within ``s_limit``. Lane ``j``'s candidate is the position of the
+    highest earlier lane of the round with the same hash, or else the
+    table's entry. The first matching lane ends the round; the lanes up to
+    it store their positions, a lane only when no later storing lane shares
+    its hash (so the table ends as the serial stores leave it). After a
+    copy ending at ``s``, ``h(s - 1) <- s - 1`` and the re-match probe at
+    ``s`` come first, on their own; if it misses, the run restarts from
+    ``s + 1``. An extension quantum compares 128 bytes."""
+    if n < MIN_NON_LITERAL_BLOCK_SIZE:
+        return ([(0, 0, n)] if n else []), 0, 0, 0
+    src = np.zeros(n + 2 * QUANTUM + 8, np.int64)
+    src[:n] = row[:n]
+    u32 = src[:-3] | src[1:-2] << 8 | src[2:-1] << 16 | src[3:] << 24
+    bits = min(max(int(n - 1).bit_length(), 8), 14)
+    hashes = ((u32 * HASH_MULTIPLIER) & 0xFFFFFFFF) >> (32 - bits)
+    top = len(u32) - 1
+    table = np.zeros(TABLE, np.int64)
+    s_limit = n - INPUT_MARGIN
+    lanes = np.arange(LANES)
+    earlier = lanes[:, None] < lanes[None, :]  # [i, j]: lane i comes before lane j
+    ops, rounds, quanta, probes = [], 0, 0, 0
+    next_emit, run, k0 = 0, 1, 0
+    s = None  # a match the re-match probe found
+    while True:
+        if s is None:
+            rounds += 1
+            k = k0 + lanes
+            pos = np.minimum(run + ADVANCE[k], top)
+            valid = run + ADVANCE[k + 1] <= s_limit
+            h = hashes[pos]
+            peer = np.where((h[:, None] == h[None, :]) & earlier, lanes[:, None], -1).max(0)
+            cand = np.where(peer >= 0, pos[np.maximum(peer, 0)], table[h])
+            hit = np.flatnonzero(valid & (u32[pos] == u32[cand]))
+            if not hit.size and not valid.all():
+                probes += int(np.argmin(valid)) + 1  # the last step makes no probe
+                if next_emit < n:
+                    ops.append((0, next_emit, n))
+                break
+            last = hit[0] if hit.size else LANES - 1
+            probes += last + 1
+            # Storing lanes whose hash no later storing lane shares.
+            hs = h[: last + 1][::-1]
+            _, first_from_end = np.unique(hs, return_index=True)
+            keep = last - first_from_end
+            table[h[keep]] = pos[keep]
+            if not hit.size:
+                k0 += LANES
+                continue
+            s, c = int(pos[last]), int(cand[last])
+            if s > next_emit:
+                ops.append((0, next_emit, s))
+        es, ec = s + 4, c + 4
+        while True:
+            quanta += 1
+            diff = np.flatnonzero(src[es : es + QUANTUM] != src[ec : ec + QUANTUM])
+            first = int(diff[0]) if diff.size else QUANTUM
+            ext = min(first, n - es)
+            es, ec = es + ext, ec + ext
+            if first < QUANTUM or ext < first:
+                break
+        ops.append((1, s - c, es - s))
+        next_emit = es
+        if es >= s_limit:
+            if es < n:
+                ops.append((0, es, n))
+            break
+        s, run, k0 = None, es + 1, 0
+        table[hashes[es - 1]] = es - 1
+        c = int(table[hashes[es]])
+        table[hashes[es]] = es
+        if u32[es] == u32[c]:
+            s = es
+    return ops, rounds, quanta, probes
+
+
+def find_ops_rounds(blocks, lengths):
+    """The automaton as K7's scan rounds take it, one block after another
+    on the host (numpy), for the tests and the step report.
+
+    Takes what :func:`find_ops_lockstep` takes and returns ``(op_kind,
+    op_a, op_b, nops, overflow, rounds, quanta, probes)``: the same op
+    planes (CPU tensors), and each block's scan rounds (32 probes at most)
+    and 128-byte extension quanta, which K7 takes one after another
+    beside a re-match probe after every copy, and its serial scan steps,
+    ``(B,)`` int64."""
+    rows = np.asarray(blocks.cpu() if isinstance(blocks, torch.Tensor) else blocks, np.uint8)
+    lens = np.asarray(lengths.cpu() if isinstance(lengths, torch.Tensor) else lengths)
+    bsz = rows.shape[0]
+    planes = np.zeros((3, bsz, MAX_OPS), np.int32)
+    nops = np.zeros(bsz, np.int32)
+    rounds = np.zeros(bsz, np.int64)
+    quanta = np.zeros(bsz, np.int64)
+    probes = np.zeros(bsz, np.int64)
+    for b in range(bsz):
+        ops, rounds[b], quanta[b], probes[b] = _block_rounds(rows[b], int(lens[b]))
+        nops[b] = len(ops)
+        if ops:
+            planes[:, b, : len(ops)] = np.asarray(ops, np.int32).T
+    t = torch.from_numpy
+    return (t(planes[0]), t(planes[1]), t(planes[2]), t(nops),
+            torch.zeros(bsz, dtype=torch.bool), t(rounds), t(quanta), t(probes))
 
 
 # ---------------------------------------------------------------------------

@@ -25,15 +25,11 @@ from . import _build
 launches = 0
 
 
-def decode_records_plain(srcs, recs, nops, declens, d_pad: int):
-    """K10's plain version, in tensor ops with no loop over ops: each byte's
-    covering record by ``searchsorted`` over the record starts; its first
-    hop, a source index for a literal or an earlier position
-    ``start - off + (j mod off)`` for a copy; pointer doubling to the
-    literal origin (int64 planes and a resolved mask, so rows up to
-    ``max_dpad`` fit); a gather from ``srcs``; zeros at and past
-    ``min(declen, the records' total length)``."""
-    b, s = srcs.shape
+def _first_hops(srcs, recs, nops, declens, d_pad: int):
+    """Each output byte's first hop, ``(val, lit, live)``: a literal byte's
+    source index, a copied byte's earlier position ``start - off + (j mod
+    off)``; whether it is a literal byte; whether it is written at all."""
+    b = srcs.shape[0]
     cap = recs.shape[1]
     dev = srcs.device
     w0 = recs[:, :, 0].to(torch.int64)
@@ -55,8 +51,19 @@ def decode_records_plain(srcs, recs, nops, declens, d_pad: int):
         start = off = torch.zeros_like(d)
         lit = torch.zeros_like(d, dtype=torch.bool)
     j = d - start
-    # Literal bytes resolve at once; copy bytes point at an earlier byte.
-    val = torch.where(lit, off + j, start - off + j % off.clamp(min=1))
+    return torch.where(lit, off + j, start - off + j % off.clamp(min=1)), lit, live
+
+
+def decode_records_plain(srcs, recs, nops, declens, d_pad: int):
+    """K10's plain version, in tensor ops with no loop over ops: each byte's
+    covering record by ``searchsorted`` over the record starts; its first
+    hop, a source index for a literal or an earlier position
+    ``start - off + (j mod off)`` for a copy; pointer doubling to the
+    literal origin (int64 planes and a resolved mask, so rows up to
+    ``max_dpad`` fit); a gather from ``srcs``; zeros at and past
+    ``min(declen, the records' total length)``."""
+    s = srcs.shape[1]
+    val, lit, live = _first_hops(srcs, recs, nops, declens, d_pad)
     done = lit | ~live
     for _ in range(max(1, d_pad.bit_length()) + 1):
         if bool(done.all()):
@@ -66,6 +73,33 @@ def decode_records_plain(srcs, recs, nops, declens, d_pad: int):
         done = done | done.gather(1, tgt)
     out = srcs.gather(1, torch.where(live, val, 0).clamp(0, max(s - 1, 0)))
     return torch.where(live, out, 0).to(torch.uint8)
+
+
+def window_rounds(srcs, recs, nops, declens, d_pad: int, window: int = 4096):
+    """K10's doubling as its CTA path takes it, window by window in order:
+    a hop that leaves the window reads its origin there at once, and
+    doubling rounds settle the chains inside the window. Returns each
+    row's rounds summed over its windows, ``(B,)`` int64, taking every
+    round all at once (the kernel doubles in place, which can only end
+    sooner)."""
+    val, lit, live = _first_hops(srcs, recs, nops, declens, d_pad)
+    pos = torch.arange(d_pad, device=srcs.device).expand_as(val)
+    hop = torch.where(lit | ~live, pos, val)
+    rounds = torch.zeros(srcs.shape[0], dtype=torch.int64, device=srcs.device)
+    for base in range(0, d_pad, window):
+        h = hop[:, base : base + window]
+        h = torch.where(h < base, hop.gather(1, h.clamp(0, d_pad - 1)), h)
+        p = pos[:, base : base + window]
+        open_ = (h >= base) & (h != p)
+        while bool(open_.any()):
+            rounds += open_.any(1).to(torch.int64)
+            h2 = hop.gather(1, h)
+            root = h2 == h
+            h = torch.where(open_ & ~root, h2, h)
+            open_ = open_ & ~root & (h >= base)
+            hop[:, base : base + window] = h
+        hop[:, base : base + window] = h
+    return rounds
 
 
 @functools.cache

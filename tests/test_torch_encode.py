@@ -8,6 +8,11 @@ the automaton's op planes, the serializer, the whole block encoder, and
 each block against the reference encoder's raw stream. Outputs are bytes
 and integers: tolerance 0. Contents stay at or below 16 KiB, since the
 plain automaton takes one Python iteration per step.
+
+``find_ops_rounds`` (K7's walk in scan rounds of 32 probes, on the host)
+is held to the lockstep automaton and the JAX package's ``find_ops`` on
+the same rows, on rows that crowd the table, on whole 64 KiB corpus blocks
+against the host codec, and on the edges of its rounds.
 """
 
 import numpy as np
@@ -22,7 +27,7 @@ from snappy_tpu.ops.pallas.encode import compress_blocks_pallas
 from snappy_tpu_torch import native
 from snappy_tpu_torch.format.varint import read_varu64
 from snappy_tpu_torch.ops import encode as enc
-from torch_vectors import hold_jax_native, share_cores_with_workers
+from torch_vectors import collision_rows, hold_jax_native, share_cores_with_workers
 
 share_cores_with_workers()
 hold_jax_native()
@@ -173,3 +178,107 @@ def test_wrapper_checks_its_inputs():
         enc.compress_blocks(rows.to(torch.int32), lens)
     with pytest.raises(ValueError, match="unsupported device"):
         enc.compress_blocks(rows.to("meta"), lens.to("meta"))
+
+
+def test_find_ops_rounds_matches_lockstep_and_jax_package(planes):
+    rows, lens, got, want = planes
+    rounds = enc.find_ops_rounds(rows, lens)
+    for name, r, g, w in zip(("op_kind", "op_a", "op_b", "nops", "overflow"), rounds, got, want):
+        assert r.dtype == g.dtype, name
+        np.testing.assert_array_equal(r.numpy(), w, err_msg=name)
+    # Its quanta are the lockstep's extension steps, its serial probes the scan steps.
+    assert torch.equal(rounds[6], got[6]) and torch.equal(rounds[7], got[5])
+
+
+@pytest.mark.parametrize("kind", list(collision_rows()))
+def test_find_ops_rounds_on_rows_that_crowd_the_table(kind):
+    datas = collision_rows()[kind]
+    rows, lens = _batch(datas)
+    rounds = enc.find_ops_rounds(rows, lens)
+    got = enc.find_ops_lockstep(torch.from_numpy(rows), torch.from_numpy(lens))
+    want = jenc.find_ops(jnp.asarray(rows), jnp.asarray(lens))
+    for name, r, g, w in zip(("op_kind", "op_a", "op_b", "nops", "overflow"), rounds, got, want):
+        np.testing.assert_array_equal(r.numpy(), g.numpy(), err_msg=name)
+        np.testing.assert_array_equal(r.numpy(), np.asarray(w), err_msg=name)
+    assert torch.equal(rounds[6], got[6]) and torch.equal(rounds[7], got[5])
+    out, out_len = enc.serialize_ops(torch.from_numpy(rows), *rounds[:4])
+    for i, d in enumerate(datas):
+        assert out[i, : out_len[i]].numpy().tobytes() == (_oracle_body(d) if d else b""), i
+
+
+@pytest.mark.parametrize("name", ["alice29.txt", "fireworks.jpeg", "kppkn.gtb", "html"])
+def test_find_ops_rounds_gives_the_host_codecs_bytes_on_64k_blocks(name):
+    """Whole 64 KiB corpus blocks, through ``serialize_ops``: the lockstep
+    plain version would take minutes a block here."""
+    data = load_corpus(name)[:65536]
+    rows, lens = _batch([data])
+    op_kind, op_a, op_b, nops, overflow, rounds, quanta, probes = enc.find_ops_rounds(rows, lens)
+    out, out_len = enc.serialize_ops(torch.from_numpy(rows), op_kind, op_a, op_b, nops)
+    assert out[0, : out_len[0]].numpy().tobytes() == _oracle_body(data)
+    assert not overflow.any() and int(rounds[0]) > 0
+
+
+@pytest.mark.parametrize("kind", ["no_match", "after_a_copy"])
+def test_rounds_end_exactly_at_s_limit(kind):
+    """Random rows of 47-50 bytes make no match: the first round's last lane
+    exists only from 48 bytes on (its next position is then s_limit
+    exactly), so the tail literal comes in round 1 or 2. Rows ``P + P + R``
+    (``P`` 20 random bytes) copy 20 bytes at position 20, and the re-match
+    probe at 40 misses. The round after it takes the run from 41 in all 32
+    lanes from ``|R| = 48`` on."""
+    rng = np.random.default_rng(5)
+    short = [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in (47, 48, 49, 50)]
+    p = rng.integers(0, 256, 20, dtype=np.uint8).tobytes()
+    tails = [p + p + rng.integers(0, 256, r, dtype=np.uint8).tobytes() for r in (45, 46, 47, 48)]
+    rows, lens = _batch(short if kind == "no_match" else tails, 1024)
+    rounds = enc.find_ops_rounds(rows, lens)
+    got = enc.find_ops_lockstep(torch.from_numpy(rows), torch.from_numpy(lens))
+    for r, g in zip(rounds[:5], got[:5]):
+        assert torch.equal(r, g)
+    assert torch.equal(rounds[6], got[6]) and torch.equal(rounds[7], got[5])
+    if kind == "no_match":
+        assert rounds[5].tolist() == [1, 2, 2, 2] and rounds[3].tolist() == [1] * 4
+    else:
+        assert rounds[5].tolist() == [2, 2, 2, 3]
+        assert rounds[3].tolist() == [3] * 4 and rounds[0][:, 1].tolist() == [1] * 4
+        assert rounds[1][:, 1].tolist() == [20] * 4 and rounds[2][:, 1].tolist() == [20] * 4
+
+
+def test_a_rematch_hit_takes_no_round():
+    """After a copy the re-match probe comes on its own: ``P + P + P[5:] +
+    R`` copies ``P`` at 20 (20 bytes, ending at 40), the probe at 40 finds
+    position 5 in the table, so a second copy (offset 35, 15 bytes) follows
+    with no round between; the probe at 55 misses, and one round takes the
+    run to s_limit and the tail literal."""
+    rng = np.random.default_rng(9)
+    p = rng.integers(0, 256, 20, dtype=np.uint8).tobytes()
+    data = p + p + p[5:] + rng.integers(0, 256, 40, dtype=np.uint8).tobytes()
+    rows, lens = _batch([data])
+    rounds = enc.find_ops_rounds(rows, lens)
+    got = enc.find_ops_lockstep(torch.from_numpy(rows), torch.from_numpy(lens))
+    want = jenc.find_ops(jnp.asarray(rows), jnp.asarray(lens))
+    for name, r, g, w in zip(("op_kind", "op_a", "op_b", "nops", "overflow"), rounds, got, want):
+        np.testing.assert_array_equal(r.numpy(), g.numpy(), err_msg=name)
+        np.testing.assert_array_equal(r.numpy(), np.asarray(w), err_msg=name)
+    assert rounds[0][0, :4].tolist() == [0, 1, 1, 0] and int(rounds[3][0]) == 4
+    assert rounds[1][0, :4].tolist() == [0, 20, 35, 55]
+    assert rounds[2][0, :4].tolist() == [20, 20, 15, 95]
+    assert rounds[5].tolist() == [2]
+    out, out_len = enc.serialize_ops(torch.from_numpy(rows), *rounds[:4])
+    assert out[0, : out_len[0]].numpy().tobytes() == _oracle_body(data)
+
+
+@pytest.mark.parametrize("source", ["planes", "collision_rows"])
+def test_rounds_are_never_more_than_the_table_probes(request, source):
+    """A round makes one serial scan step's table probe at least. On text
+    32 probes a round make the rounds far fewer than the serial scan
+    steps."""
+    if source == "planes":
+        rows, lens, _, _ = request.getfixturevalue("planes")
+    else:
+        rows, lens = _batch([d for datas in collision_rows().values() for d in datas])
+    *_, rounds, _, probes = enc.find_ops_rounds(rows, lens)
+    assert (rounds <= probes).all()
+    if source == "planes":
+        text = ROWS.index(load_corpus("html")[:4096])
+        assert int(rounds[text]) < int(probes[text])

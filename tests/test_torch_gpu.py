@@ -22,8 +22,8 @@ from snappy_tpu_torch.ops import (
     replay, resolve,
 )
 from torch_vectors import (
-    CORRUPT, fallback_row, literal, overlap_rows, raw_body, resolve_cases, scan_batch,
-    wide_stream,
+    CORRUPT, collision_rows, fallback_row, literal, overlap_rows, raw_body, resolve_cases,
+    scan_batch, wide_stream,
 )
 
 pytestmark = pytest.mark.gpu
@@ -279,7 +279,8 @@ def test_compress_on_the_card(dev):
 
 def test_encode_kernel_matches_plain(dev):
     """K7 against its plain version: the edge rows, seeded repetitive
-    rows and corpus blocks, at 4096 and 65536 bytes a row."""
+    rows, rows that crowd the table (so that lanes of a scan round share a
+    hash) and corpus blocks, at 4096 and 65536 bytes a row."""
     rng = np.random.default_rng(3)
     edge = [
         b"hello world hello world hello world!", bytes(rng.integers(0, 4, 3000, dtype=np.uint8)),
@@ -291,6 +292,7 @@ def test_encode_kernel_matches_plain(dev):
         edge.append(np.tile(seg, 4)[: 1000 + 700 * seed].tobytes())
     blocks_cases = [
         (edge, 4096),
+        ([d for rows in collision_rows().values() for d in rows], 4096),
         ([load_corpus(n)[:65536] for n in ("alice29.txt", "fireworks.jpeg", "kppkn.gtb")]
          + [b"abcdefgh" * 8192, bytes(65536), load_corpus("html")[:50000]], 65536),
     ]
@@ -308,6 +310,33 @@ def test_encode_kernel_matches_plain(dev):
             c = native.compress(d)
             body = c[read_varu64(c)[1]:] if d else b""
             assert host[i, : int(out_len[i])].tobytes() == body
+
+
+def test_encode_kernel_on_the_compress_group(dev):
+    """K7 on the exact compress path's own launch group: the corpus cycled
+    to 64 MiB + 5,000 bytes, 1,025 blocks in 2,048 rows, each block equal
+    to the host codec's stream of it (the plain version would take minutes
+    here; it equals the host codec on the CPU tests' blocks)."""
+    total = (64 << 20) + 5000
+    names = ["html", "urls.10K", "fireworks.jpeg", "paper-100k.pdf", "html_x_4",
+             "alice29.txt", "asyoulik.txt", "lcet10.txt", "plrabn12.txt", "geo.protodata",
+             "kppkn.gtb"]
+    corpus = b"".join(load_corpus(n) for n in names)
+    data = (corpus * (total // len(corpus) + 1))[:total]
+    blocks, lens = packing.blocks_of(data)
+    rows = packing.pad_to_bucket(len(lens), 1)
+    bt = torch.zeros((rows, blocks.shape[1]), dtype=torch.uint8, device=dev)
+    lt = torch.zeros(rows, dtype=torch.int32, device=dev)
+    bt[: len(lens)], lt[: len(lens)] = torch.from_numpy(blocks), torch.from_numpy(lens)
+    before = encode.launches
+    out, out_len = encode.compress_blocks(bt, lt)
+    torch.cuda.synchronize()
+    assert encode.launches == before + 1 and (len(lens), rows) == (1025, 2048)
+    host, host_len = out.cpu().numpy(), out_len.cpu().numpy()
+    for i in range(len(lens)):
+        c = native.compress(blocks[i, : lens[i]].tobytes())
+        assert host[i, : host_len[i]].tobytes() == c[read_varu64(c)[1]:], i
+    assert not host_len[len(lens):].any() and not host[len(lens):].any()
 
 
 def test_exact_compress_and_frame_writer_on_the_card(dev):
@@ -388,9 +417,11 @@ def test_resolve_kernels_match_plain(dev):
 
 def test_records_kernel_matches_plain(dev):
     """K10 against its plain version: corrupt rows (their valid prefix),
-    overlapping copies and corpus chunks, with the output staged in shared
-    memory (64 KiB) and worked in device memory (256 KiB)."""
+    overlapping copies, deep copy chains and corpus chunks, at ``d_pad``
+    65536 (a CTA a row, pointer doubling in shared memory) and 262144 (a
+    warp a row replaying the records in order)."""
     rows = CORRUPT + overlap_rows((1, 3, 31, 32, 33, 127, 128, 129, 255), copies=20)
+    rows += [raw_body(b"a" * 65536), raw_body(bytes(range(7)) * 9000)]  # deep chains
     rows += [raw_body(c) for c in CHUNKS]
     srcs, _, declens, recs, nops, errs = scan_batch(rows, 16384)
     a = _on(dev, srcs, recs, nops.astype(np.int32), declens)

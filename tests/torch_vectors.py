@@ -166,3 +166,26 @@ def wide_stream(n_blocks: int, seed: int = 5) -> tuple[bytes, int]:
         body += literal(rng.integers(0, 256, 61440, dtype=np.uint8).tobytes())
         body += copy2(61440, 64) * 32 + literal(rng.integers(0, 256, 2048, dtype=np.uint8).tobytes())
     return body, n_blocks * 65536
+
+
+def collision_rows() -> dict[str, list[bytes]]:
+    """Rows that crowd the exact encoder's table, four of each kind, made
+    from seeds: short alphabets, 4-byte periods with a mutation now and
+    then, rows of at most 257 bytes (a 256-entry table), and the edges:
+    blocks of 16 and 17 bytes, an empty block and a 2 KiB block."""
+    rng = np.random.default_rng(71)
+
+    def period4(n):
+        row = np.tile(rng.integers(0, 256, 4, dtype=np.uint8), n // 4 + 1)[:n]
+        row[rng.integers(0, n, n // 50)] = rng.integers(0, 256, n // 50, dtype=np.uint8)
+        return row.tobytes()
+
+    return {
+        "alphabets": [rng.integers(0, k, n, dtype=np.uint8).tobytes()
+                      for k, n in ((2, 3000), (3, 2500), (4, 4000), (16, 1500))],
+        "period4": [period4(n) for n in (1000, 2048, 3001, 4096)],
+        "small_table": [rng.integers(0, k, n, dtype=np.uint8).tobytes()
+                        for k, n in ((8, 257), (16, 200), (64, 100), (4, 120))],
+        "edges": [rng.integers(0, 4, 16, dtype=np.uint8).tobytes(), b"abcd" * 4 + b"a",
+                  b"", rng.integers(0, 8, 2048, dtype=np.uint8).tobytes()],
+    }
