@@ -50,7 +50,9 @@ K8 and K9 (chain resolution) and K10 (record replay) are held against
 their plain versions on the frame's largest launch group (455 rows,
 ``d_pad`` 65536) as the host's record scan leaves it, and K9's path
 (``decode_resolve_batch(use_fused=False)``) must give the host codec's
-bytes there.
+bytes there. K8's windowed model (``resolve.resolve_fh_windows``) must
+give K8's plain plane there, and K8's row carries the doubling rounds of
+each window that holds live bytes (mean and most).
 
 K11 (the grouped flat gather, the JAX package's v3/v4 entry, which no
 library path calls) is held on the same 455-row group, with the host
@@ -77,7 +79,11 @@ row carries the rounds of pointer doubling its group takes, window by
 window as its CTA path takes them (``records.window_rounds``). K7's and
 K10's ``ms`` is device-only, their C entries' calls captured in a CUDA
 graph as K2's are (their wrappers read lengths back to check them, which
-a graph cannot hold), and ``call_ms`` over wrapper calls.
+a graph cannot hold), and ``call_ms`` over wrapper calls; K4's and K8's
+``ms`` likewise device-only, their wrappers' calls in a graph, beside
+``call_ms``. K4's row carries the compress group's longest walk a block
+(mean and most over the live blocks, ``parse.parse_lockstep``'s step
+counts).
 
 It prints one ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Details go to
@@ -555,8 +561,9 @@ def main() -> int:
     live_blocks = int((clens > 0).sum())
     jw, _ = encode_flat.prepass(cb, cl)
     rec = parse.parse_blocks(cl, jw, cb)
-    *want4, lane_steps = parse.parse_lockstep(cl, jw, cb)
+    *want4, lane_steps, seg_steps = parse.parse_lockstep(cl, jw, cb)
     eq4 = all(torch.equal(g, w) for g, w in zip(rec, want4))
+    longest = seg_steps.max(dim=1).values[cl > 0].double()  # a block's longest walk
     nbytes = (live_blocks * (4 * 128 * 512 + 65536)
               + rows * (2 * 4 * 128 * parse.MAX_REC + 4 * 128 * 8 + 4))
     bnd, by = bound_ms(nbytes, PARSE_OPS_PER_STEP * lane_steps)
@@ -564,8 +571,10 @@ def main() -> int:
         "name": "parse", "route": "cuda", "source": "snappy_tpu_torch/csrc/parse.cu",
         "replaces": "snappy_tpu/ops/pallas/encode_flat.py:195 parse_blocks_pallas",
         "shape": [rows, 65536], "live_blocks": live_blocks, "lane_steps": lane_steps,
+        "longest_walk_per_block": {"mean": float(longest.mean()), "max": int(longest.max())},
         "equal": eq4, "max_abs_err": max(max_abs_err(g, w) for g, w in zip(rec, want4)),
-        "ms": cuda_ms(lambda: parse.parse_blocks(cl, jw, cb), 10),
+        "ms": device_ms(lambda: parse.parse_blocks(cl, jw, cb), 10),
+        "call_ms": cuda_ms(lambda: parse.parse_blocks(cl, jw, cb), 10),
         "plain_ms": cuda_ms(lambda: parse.parse_blocks_plain(cl, jw, cb), 1, warm=0),
         "bound_ms": bnd, "bound_by": by, "library_ms": None,
     })
@@ -738,24 +747,34 @@ def main() -> int:
     # Bytes the work needs: each input read once (the valid records, 8
     # bytes each, and the lengths; K9's first-hop plane; K10's literal
     # bytes) and each plane or row written once. K8 and K9 also read their
-    # own plane back once for every first hop that leaves its 1024-byte
-    # tile; those reads hit lines the CTA has just written, and are counted
-    # only in bound_with_hops_ms.
+    # own plane back once for every first hop that leaves its window (K8's
+    # 4,096 positions) or 1024-byte tile (K9); those reads hit lines the CTA
+    # has written before, and are counted only in bound_with_hops_ms.
     n_rec = int(nops.sum())
-    tile0 = torch.arange(d_pad, device=dev)[None, :] // 1024 * 1024
-    cross_hops = int(((a0 >= 0) & (a0 < tile0)).sum())
+    pos = torch.arange(d_pad, device=dev)[None, :]
+    cross_hops = int(((a0 >= 0) & (a0 < pos // 1024 * 1024)).sum())
+    cross_windows = int(((a0 >= 0) & (a0 < pos // 4096 * 4096)).sum())
     valid_rec = torch.arange(r_pad, device=dev)[None, :] < n_t[:, None]
     w0 = r_t[:, :, 0]
     lit_bytes = int(torch.where(valid_rec & (w0 >> 30 == 1), w0 & 0x3FFFFFFF, 0).sum())
     plane_bytes = 4 * len(big) * d_pad
     report["resolve_group"] = {"rows": len(big), "d_pad": d_pad, "records": n_rec,
                                "record_cap": rec_cap, "r_pad": r_pad,
-                               "cross_tile_hops": cross_hops, "literal_bytes": lit_bytes}
+                               "cross_tile_hops": cross_hops, "cross_window_hops": cross_windows,
+                               "literal_bytes": lit_bytes}
     w_rounds = records.window_rounds(s_t, r_t, n_t, d_t, d_pad)
     report["resolve_group"]["window_rounds"] = {"max": int(w_rounds.max()),
                                                 "mean": float(w_rounds.double().mean())}
     got8 = resolve.resolve_fh(startsx, payload, d_t, d_pad)
     want8 = resolve.resolve_fh_plain(startsx, payload, d_t, d_pad)
+    # K8's algorithm in tensor ops: its plane, and its doubling rounds in
+    # each window that holds live bytes.
+    model8, fh_rounds = resolve.resolve_fh_windows(startsx, payload, d_t, d_pad)
+    check(torch.equal(model8, want8), "K8's windowed model differs from its plain version")
+    live_win = torch.arange(fh_rounds.shape[1], device=dev)[None, :] * 4096 < d_t[:, None]
+    report["resolve_group"]["fh_rounds_per_window"] = {
+        "max": int(fh_rounds.max()), "mean": float(fh_rounds[live_win].double().mean())}
+    del model8, fh_rounds
     got9 = resolve.resolve(a0)
     want9 = resolve.resolve_reference(a0)
     got10 = records.decode_records(s_t, r_t, n_t, d_t, d_pad)
@@ -768,7 +787,7 @@ def main() -> int:
     for name, got, want, fn, plain_fn, nbytes, hop_bytes, where in (
         ("resolve_fh", got8, want8, lambda: resolve.resolve_fh(startsx, payload, d_t, d_pad),
          lambda: resolve.resolve_fh_plain(startsx, payload, d_t, d_pad),
-         8 * n_rec + 4 * len(big) + plane_bytes, 4 * cross_hops,
+         8 * n_rec + 4 * len(big) + plane_bytes, 4 * cross_windows,
          "snappy_tpu/ops/pallas/resolve.py:439 resolve_fh_pallas"),
         ("resolve", got9, want9, lambda: resolve.resolve(a0), lambda: resolve.resolve_reference(a0),
          2 * plane_bytes, 4 * cross_hops, "snappy_tpu/ops/pallas/resolve.py:207 resolve_pallas"),
@@ -788,6 +807,12 @@ def main() -> int:
             "bound_with_hops_ms": bound_ms(nbytes + hop_bytes)[0],
         })
         check(kernels[-1]["equal"], f"{name} differs from its plain version")
+    # K8 device-only: its wrapper reads nothing back, so its calls go into a
+    # CUDA graph as K2's do; "ms" above is over wrapper calls.
+    k8 = next(k for k in kernels if k["name"] == "resolve_fh")
+    k8["call_ms"] = k8["ms"]
+    k8["ms"] = device_ms(lambda: resolve.resolve_fh(startsx, payload, d_t, d_pad), 10)
+    k8["rounds_per_window"] = report["resolve_group"]["fh_rounds_per_window"]
     # K10 device-only through its C entry (the wrapper reads the counts and
     # lengths back to check them); "ms" above is over wrapper calls.
     o10 = torch.empty((len(big), d_pad), dtype=torch.uint8, device=dev)
@@ -804,7 +829,7 @@ def main() -> int:
     del o10
     print(f"K8/K9/K10 group: {report['resolve_group']}, host scan "
           f"{report['scan_largest_group_s']:.4f} s")
-    del s_t, r_t, n_t, d_t, startsx, payload, a0, tile0, valid_rec, w0
+    del s_t, r_t, n_t, d_t, startsx, payload, a0, pos, valid_rec, w0
     del got8, want8, got9, want9, got10, want10, out9
 
     # -- main paths --------------------------------------------------------------------

@@ -8,14 +8,63 @@
 // ops/resolve.py records_to_pointers makes. A first hop is FLAG + content + j
 // for the j-th byte of a literal (resolved), start - off + (j mod off) for a
 // copy (an earlier output position), and exactly FLAG at and past declen.
+// The TPU kernels' digit planes, one-hot routing matmuls, transposes and
+// 128/256/512-row windows exist because Mosaic has no gather; here a gather
+// is a load.
 //
-// What bounds it: dependent loads. Each round of a tile reads one value per
-// byte from shared memory or from the row's plane, and the rounds of a tile
-// follow each other; K8 adds a binary search over the row's record starts
-// per byte (about log2(records) dependent loads). The bytes it must move
-// (records or the first-hop plane in, the resolved plane out) are small.
+// What bounds it: the bytes are small (the records in, the resolved plane
+// out), so the time is the chains of dependent reads that find each
+// byte's origin, and how many of them run at once.
 //
-// Design: one CTA of 1024 threads per row, one thread per position of a
+// K8 (rows of d_pad <= 65536, every row of the route): one CTA of 256
+// threads a row, four CTAs an SM (so the route's 455-row groups run in one
+// wave), taking the row a window of 4,096 positions at a time, in order.
+// When a window starts, every position before it holds its final value in
+// the output row. For the window:
+//  1. the records that cover it stream through in passes of 1,024 (4 a
+//     thread; a window of the corpus has about 800, and needs a second
+//     pass where its records average under 4 bytes; passes of 2,048 took
+//     0.248 ms on the 455-row group against 0.228). A record covers the
+//     bytes from its start to the next record's start, and of several with
+//     one start (empty records) the last one, as the plain version's
+//     searchsorted(startsx, d, right=True) - 1 picks it; records at and
+//     past nops carry start = declen and cover nothing. The record that
+//     covers the window's first byte but starts before it counts as
+//     starting there. The pass's covering records are ranked by a CTA-wide
+//     scan and their starts and payloads kept in order; each sets a bit at
+//     its (window-relative) start;
+//  2. every position counts the start bits at or before it (popc of its
+//     32-bit word, after the warps' counts of the words before; a warp
+//     takes 16 words at once, so that its loads of earlier values are in
+//     flight together) to find its record, then takes its entry in the
+//     window: a literal byte its final value FLAG + w1 + j; a copied byte
+//     its first hop start - off + (j < off ? j : j % off), an earlier
+//     position (always: off >= 1), which is replaced at once by that
+//     position's final value when it lies before the window (a load of the
+//     output row). A first hop below 0 is read at 0, as the plain version's
+//     clipped gather reads it; position 0 itself then takes that first hop
+//     (< FLAG) as its final value. Bytes before the first record (a row
+//     with no record: all of them) take start 0 and payload 0, a copy of
+//     offset 1, first hop -1;
+//  3. the chains inside the window settle by pointer doubling in place,
+//     e = entry[e], until every entry is a final value (__syncthreads_or).
+//     Entries are 32 bits: a pointer is a position below 65536, a final
+//     value is >= FLAG or below 0, so a read that races a write sees an
+//     old pointer or a newer pointer or value, each on the same chain;
+//  4. the window's values go to the output row in 16-byte stores, FLAG
+//     from declen on.
+// So the plane equals the plain version's on every row: a chain that ends
+// at a literal resolves, and one that reaches below 0 takes position 0's
+// value, as Jacobi doubling over a clipped gather gives (its log2(d_pad)
+// rounds cover every chain, since each hop goes strictly back). A window,
+// its start bits and a pass's records take 25 KiB of shared memory.
+// Taking the whole row into shared memory at once (a uint16 plane of first
+// hops, doubling window by window as K10 does, then every value read back
+// from the output row: one 1024-thread CTA an SM, the 455-row group in
+// four waves) took 0.33 ms; resolve_parse_probe.py keeps it and times the
+// phases.
+//
+// K9: one CTA of 1024 threads per row, one thread per position of a
 // 1024-byte tile, sweeping the tiles left to right as the TPU kernel does.
 // Snappy pointers go strictly backward, so when tile t runs every position
 // before it is final: a pointer into an earlier tile is resolved by one read
@@ -26,27 +75,205 @@
 // rounds (12: the TPU kernel's first round and 11 passes). Then the tile is
 // stored, and a __syncthreads() makes the stores visible to the CTA's later
 // reads of them; the plane is therefore read through plain loads, never the
-// read-only path (no const __restrict__ on it). The TPU kernel's digit
-// planes, one-hot routing matmuls, transposes and 128/256/512-row windows
-// exist because Mosaic has no gather; here a gather is a load.
-//
-// Error rows: the scan records only the valid prefix of a corrupt row, so the
-// positions past its last record extend that record; a row with no record
-// (nops == 0, declen > 0) gets hop -1 everywhere, as the TPU kernel's empty
-// one-hot row gives. A pointer below 0 or at or past its own position is
-// never chased, and a tile over the round budget is stored as it stands, so
-// such a row keeps values below FLAG and the caller flags it for fallback.
+// read-only path (no const __restrict__ on it). A pointer below 0 or at or
+// past its own position is never chased, and a tile over the round budget
+// is stored as it stands, so such a row keeps values below FLAG and the
+// caller flags it for fallback.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
+constexpr int kWarp = 32;
+constexpr unsigned kAll = 0xFFFFFFFFu;
 constexpr int kTile = 1024;
 constexpr int32_t kFlag = 1 << 17;
+constexpr int kThreads = 256;      // K8's CTA
+constexpr int kCtas = 4;           // K8's CTAs an SM
+constexpr int kWarps = kThreads / kWarp;
+constexpr int kWin = 4096;         // positions of a window
+constexpr int kSteps = kWin / kThreads;  // positions a thread takes in a window
+constexpr int kPerThread = 4;      // records a thread takes in a pass
+constexpr int kPass = kPerThread * kThreads;
+constexpr int kMaxRow = 65536;     // widest row K8 takes (pointers below it)
+constexpr int kHopBatch = 16;      // words of first hops a warp takes at once
 
-// Resolves position d (thread threadIdx.x of the tile starting at t0) from
-// its first hop v and stores it in the row's plane.
+// Inclusive scan of x over the CTA (warp_sums: a word a warp); returns the
+// sum of the threads before this one.
+__device__ __forceinline__ int exclusive_scan(int x, int* warp_sums) {
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int mine = x;
+  for (int o = 1; o < kWarp; o <<= 1) {
+    const int y = __shfl_up_sync(kAll, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == kWarp - 1) warp_sums[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < kWarps ? warp_sums[lane] : 0;
+    for (int o = 1; o < kWarp; o <<= 1) {
+      const int y = __shfl_up_sync(kAll, w, o);
+      if (lane >= o) w += y;
+    }
+    if (lane < kWarps) warp_sums[lane] = w;
+  }
+  __syncthreads();
+  return x - mine + (warp ? warp_sums[warp - 1] : 0);
+}
+
+// A pointer: an earlier position of the row (a final value is >= FLAG or < 0).
+__device__ __forceinline__ bool is_pointer(int e) { return static_cast<unsigned>(e) < kMaxRow; }
+
+__global__ void __launch_bounds__(kThreads, kCtas)
+resolve_fh_kernel(const int32_t* __restrict__ startsx,
+                  const int32_t* __restrict__ payload, int64_t cap,
+                  const int32_t* __restrict__ declens, int d_pad, int32_t* out) {
+  __shared__ int win[kWin];                  // the window's entries
+  __shared__ uint32_t starts[kWin / 32];     // a bit per covering start in the window
+  __shared__ int start_of[kPass], pay_of[kPass];  // a pass's covering records
+  __shared__ int warp_sums[kWarps];
+  __shared__ int last_before;                // the last record that starts before the window's end
+
+  const int64_t b = blockIdx.x;
+  const int t = threadIdx.x;
+  const int lane = t % kWarp, warp = t / kWarp;
+  const int32_t* st = startsx + b * cap;
+  const int32_t* pk = payload + b * cap;
+  int32_t* row = out + b * static_cast<int64_t>(d_pad);
+  const int lim = static_cast<int>(max(min(static_cast<int64_t>(declens[b]), static_cast<int64_t>(d_pad)),
+                                       int64_t{0}));
+  int64_t j0 = 0;  // the first record of the next pass, the same in every thread
+  for (int base = 0; base < d_pad; base += kWin) {
+    const int wend = min(base + kWin, lim);
+    if (base < wend) {  // the same in every thread
+      for (int w = t; w < kWin / 32; w += kThreads) starts[w] = 0;
+      if (t == 0) last_before = static_cast<int>(j0);
+      __syncthreads();
+      // 1-2, a pass at a time; carry is where the pass's span starts.
+      int carry = base;
+      while (carry < wend) {
+        int s0[kPerThread + 1], s[kPerThread + 1], pv[kPerThread];
+        int last = -1;  // this thread's last record that starts before wend
+#pragma unroll
+        for (int u = 0; u <= kPerThread; ++u) {
+          const int64_t j = j0 + kPerThread * t + u;
+          s0[u] = j < cap ? st[j] : INT32_MAX;
+          s[u] = max(s0[u], carry);  // a start before carry counts as carry
+          if (u < kPerThread) {
+            pv[u] = j < cap ? pk[j] : 0;
+            if (s0[u] < wend) last = static_cast<int>(j);
+          }
+        }
+        last = __reduce_max_sync(kAll, last);
+        if (lane == 0 && last >= 0) atomicMax(&last_before, last);
+        bool covers[kPerThread];
+        int x = 0;
+#pragma unroll
+        for (int u = 0; u < kPerThread; ++u) {
+          covers[u] = s[u] < wend && s[u] != s[u + 1];
+          x += covers[u];
+        }
+        int rank = exclusive_scan(x, warp_sums);
+#pragma unroll
+        for (int u = 0; u < kPerThread; ++u) {
+          if (!covers[u]) continue;
+          start_of[rank] = s0[u];  // its true start
+          pay_of[rank] = pv[u];
+          const int r = s[u] - base;
+          atomicOr(starts + (r >> 5), 1u << (r & 31));
+          rank++;
+        }
+        const int64_t jn = j0 + kPass;
+        const int hi = jn < cap ? min(max(st[jn], carry), wend) : wend;
+        __syncthreads();
+        // Each warp takes a run of the span's 32-position words. The starts
+        // at or before a position, counted from the pass's first, give its
+        // record.
+        const int w_lo = (carry - base) >> 5, w_hi = (hi - base + 31) >> 5;
+        const int per_warp = (w_hi - w_lo + kWarps - 1) / kWarps;
+        const int wa = w_lo + warp * per_warp, wb = min(wa + per_warp, w_hi);
+        const uint32_t from_carry = ~0u << ((carry - base) & 31);  // the first word's bits from carry on
+        int count = 0;
+        for (int w = wa + lane; w < wb; w += kWarp)
+          count += __popc(starts[w] & (w == w_lo ? from_carry : ~0u));
+        count = __reduce_add_sync(kAll, count);
+        int before = exclusive_scan(lane == 0 ? count : 0, warp_sums);  // the pass's starts before
+        before = __shfl_sync(kAll, before, 0);
+        const uint32_t upto = 0xFFFFFFFFu >> (kWarp - 1 - lane);  // bits at or below this lane
+        for (int w0 = wa; w0 < wb; w0 += kHopBatch) {
+          int q[kHopBatch], e[kHopBatch];
+#pragma unroll
+          for (int u = 0; u < kHopBatch; ++u) {
+            const int w = w0 + u;
+            const uint32_t bits = w < wb ? starts[w] & (w == w_lo ? from_carry : ~0u) : 0u;
+            const int p = base + 32 * w + lane;
+            q[u] = w < wb && p >= carry && p < hi ? 32 * w + lane : -1;
+            const int i = min(before + __popc(bits & upto) - 1, kPass - 1);
+            before += __popc(bits);
+            const int start = i >= 0 ? start_of[i] : 0;  // before the first record: a copy
+            const int pay = i >= 0 ? pay_of[i] : 0;      // of offset 1 at 0
+            const int w1 = pay & 0x1FFFF;
+            const int j = p - start;
+            if ((pay >> 17) == 1) {
+              e[u] = kFlag + w1 + j;
+            } else {
+              const int off = max(w1, 1);
+              const int h = start - off + (j < off ? j : j % off);
+              e[u] = h < 0 && p == 0 ? h : max(h, 0);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < kHopBatch; ++u)  // pointers before the window: their values
+            if (q[u] >= 0 && is_pointer(e[u]) && e[u] < base) e[u] = row[e[u]];
+#pragma unroll
+          for (int u = 0; u < kHopBatch; ++u)
+            if (q[u] >= 0) win[q[u]] = e[u];
+        }
+        carry = hi;
+        if (carry < wend) j0 = jn;  // the window needs the next pass
+        __syncthreads();
+      }
+      j0 = last_before;
+
+      // 3: the window's chains.
+      int h[kSteps];
+      bool open[kSteps];
+      bool any = false;
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) {
+        const int q = u * kThreads + t;
+        h[u] = base + q < wend ? win[q] : kFlag;
+        open[u] = is_pointer(h[u]);
+        any |= open[u];
+      }
+      while (__syncthreads_or(any)) {
+        any = false;
+#pragma unroll
+        for (int u = 0; u < kSteps; ++u) {
+          if (!open[u]) continue;
+          h[u] = win[h[u] - base];
+          win[u * kThreads + t] = h[u];
+          open[u] = is_pointer(h[u]);
+          any |= open[u];
+        }
+      }
+    }
+    // 4: the window's values, FLAG from lim on.
+    for (int c = t; c < kWin / 4; c += kThreads) {
+      const int p0 = base + 4 * c;
+      if (p0 >= d_pad) break;
+      int v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[i] = p0 + i < lim ? win[4 * c + i] : kFlag;
+      reinterpret_cast<int4*>(row)[p0 / 4] = make_int4(v[0], v[1], v[2], v[3]);
+    }
+    __syncthreads();
+  }
+}
+
+// K9: resolves position d (thread threadIdx.x of the tile starting at t0)
+// from its first hop v and stores it in the row's plane.
 __device__ __forceinline__ void resolve_tile(int32_t v, int64_t d, int64_t t0,
                                              int32_t* plane, int32_t* buf,
                                              int max_rounds) {
@@ -67,50 +294,6 @@ __device__ __forceinline__ void resolve_tile(int32_t v, int64_t d, int64_t t0,
 }
 
 __global__ void __launch_bounds__(kTile)
-resolve_fh_kernel(const int32_t* __restrict__ startsx,
-                  const int32_t* __restrict__ payload, int64_t cap,
-                  const int32_t* __restrict__ declens, int64_t d_pad,
-                  int max_rounds, int32_t* out) {
-  __shared__ int32_t buf[2 * kTile];
-  const int64_t b = blockIdx.x;
-  const int64_t declen = declens[b];
-  const int32_t* st = startsx + b * cap;
-  const int32_t* pk = payload + b * cap;
-  int32_t* plane = out + b * d_pad;
-  for (int64_t t0 = 0; t0 < d_pad; t0 += kTile) {
-    const int64_t d = t0 + threadIdx.x;
-    if (t0 >= declen) {  // the same for every thread of the row
-      plane[d] = kFlag;
-      continue;
-    }
-    int32_t v = kFlag;
-    if (d < declen) {
-      // The covering record: the last one whose start is at or before d
-      // (records past nops carry start = declen > d).
-      int64_t lo = 0, hi = cap;
-      while (lo < hi) {
-        const int64_t mid = (lo + hi) >> 1;
-        if (st[mid] <= d) lo = mid + 1; else hi = mid;
-      }
-      int32_t start = 0, pay = 0;  // no record: a copy of offset 1 at 0
-      if (lo > 0) {
-        start = st[lo - 1];
-        pay = pk[lo - 1];
-      }
-      const int32_t w1 = pay & 0x1FFFF;
-      const int32_t j = static_cast<int32_t>(d) - start;
-      if (pay >> 17) {
-        v = kFlag + w1 + j;
-      } else {
-        const int32_t off = max(w1, 1);
-        v = start - off + (j < off ? j : j % off);
-      }
-    }
-    resolve_tile(v, d, t0, plane, buf, max_rounds);
-  }
-}
-
-__global__ void __launch_bounds__(kTile)
 resolve_kernel(const int32_t* __restrict__ a0, int64_t d_pad, int max_rounds,
                int32_t* out) {
   __shared__ int32_t buf[2 * kTile];
@@ -125,13 +308,17 @@ resolve_kernel(const int32_t* __restrict__ a0, int64_t d_pad, int max_rounds,
 
 }  // namespace
 
+// startsx, payload: (n_rows, cap) int32 (ops/resolve.py
+// records_to_kernel_inputs); declens: (n_rows,) int32; out: (n_rows, d_pad)
+// int32, d_pad a multiple of 1024 up to 65536.
 extern "C" int stpu_cuda_resolve_fh(const int32_t* startsx, const int32_t* payload,
                                     int64_t n_rows, int64_t cap,
                                     const int32_t* declens, int64_t d_pad,
-                                    int max_rounds, int32_t* out, void* stream) {
-  resolve_fh_kernel<<<static_cast<unsigned>(n_rows), kTile, 0,
+                                    int32_t* out, void* stream) {
+  if (d_pad <= 0 || d_pad > kMaxRow || d_pad % kTile) return static_cast<int>(cudaErrorInvalidValue);
+  resolve_fh_kernel<<<static_cast<unsigned>(n_rows), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      startsx, payload, cap, declens, d_pad, max_rounds, out);
+      startsx, payload, cap, declens, static_cast<int>(d_pad), out);
   return static_cast<int>(cudaGetLastError());
 }
 

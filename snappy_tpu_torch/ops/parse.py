@@ -62,9 +62,11 @@ def _tz_bytes(x):
 def parse_lockstep(lens, jw, blocks):
     """The Pallas body's lockstep walk in PyTorch ops, on any device.
 
-    Returns ``(rec0, rec1, cnt, lane_steps)``: the records as
-    :func:`parse_blocks` returns them, and the number of (segment,
-    iteration) pairs in which a walk was live, the work the kernel does.
+    Returns ``(rec0, rec1, cnt, lane_steps, seg_steps)``: the records as
+    :func:`parse_blocks` returns them, the number of (segment, iteration)
+    pairs in which a walk was live (the work the kernel does), and each
+    segment's own steps, ``(B, 128)`` int64 (its walk's length: a block's
+    longest walk bounds its thread block).
     """
     b = lens.shape[0]
     dev = jw.device
@@ -87,13 +89,12 @@ def parse_lockstep(lens, jw, blocks):
     offc = torch.ones_like(zero)
     rec0 = torch.zeros((b, NSEG, MAX_REC), dtype=torch.int32, device=dev)
     rec1 = torch.zeros_like(rec0)
-    lane_steps = 0
+    seg_steps = torch.zeros((b, NSEG), dtype=torch.int64, device=dev)
     while True:
         alive = p < hi
-        live = int(alive.sum())
-        if live == 0:
+        if not bool(alive.any()):
             break
-        lane_steps += live
+        seg_steps += alive
         scan_m = alive & (mode == 0)
 
         # scan: the jump word at p (column clipped as the Pallas read is)
@@ -131,11 +132,11 @@ def parse_lockstep(lens, jw, blocks):
     cnt = torch.zeros((b, NSEG, 8), dtype=torch.int32, device=dev)
     cnt[..., 0] = k
     cnt[..., 1] = (k >= MAX_REC).to(torch.int32)
-    return rec0, rec1, cnt, lane_steps
+    return rec0, rec1, cnt, int(seg_steps.sum()), seg_steps
 
 
 def parse_blocks_plain(lens, jw, blocks):
-    """:func:`parse_lockstep` without the step count."""
+    """:func:`parse_lockstep` without the step counts."""
     return parse_lockstep(lens, jw, blocks)[:3]
 
 

@@ -89,6 +89,7 @@ def window_rounds(srcs, recs, nops, declens, d_pad: int, window: int = 4096):
     for base in range(0, d_pad, window):
         h = hop[:, base : base + window]
         h = torch.where(h < base, hop.gather(1, h.clamp(0, d_pad - 1)), h)
+        hop[:, base : base + window] = h  # the kernel stores these before doubling
         p = pos[:, base : base + window]
         open_ = (h >= base) & (h != p)
         while bool(open_.any()):

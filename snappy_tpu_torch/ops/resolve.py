@@ -11,8 +11,10 @@ card:
    ``start - off + (j mod off)`` for a copy (an earlier output position;
    ``j mod off`` covers overlapping copies, whose period is the offset);
 2. pointer jumping until every byte carries ``FLAG``: K8 (:func:`resolve_fh`)
-   builds the first hops itself from the records, K9 (:func:`resolve`) reads
-   them from the plane :func:`records_to_pointers` makes;
+   builds the first hops itself from the records and doubles them window
+   by window in shared memory (:func:`resolve_fh_windows` follows it), K9
+   (:func:`resolve`) reads them from the plane :func:`records_to_pointers`
+   makes and doubles them tile by tile;
 3. :func:`idx_to_v2_inputs`: the resolved plane to the flat gather's inputs,
    the C++ flatten's window choice bit for bit, and K2 (``layout=1``) emits
    the bytes.
@@ -41,9 +43,9 @@ from .encode_flat import _no_span
 #: source indices fit 17 bits.
 FLAG = 1 << 17
 
-#: Gather rounds per 1024-byte tile after its first hops: the JAX package's
-#: one first round plus ``_MAX_PASSES`` (11). Jacobi doubling covers 2^12
-#: hops by then, past the 1024 a tile can chain.
+#: K9's gather rounds per 1024-byte tile after its first hops: the JAX
+#: package's one first round plus ``_MAX_PASSES`` (11). Jacobi doubling
+#: covers 2^12 hops by then, past the 1024 a tile can chain.
 MAX_ROUNDS = 12
 
 #: Kernel launches since the counts were last reset, per kernel.
@@ -154,12 +156,73 @@ def resolve_fh_plain(startsx, payload, declens, d_pad: int):
     return resolve_reference(a0)
 
 
+def resolve_fh_windows(startsx, payload, declens, d_pad: int, window: int = 4096):
+    """K8's algorithm step by step in tensor ops (a model of the kernel, not
+    its plain version): a bit at each covering record's start (of records
+    sharing a start, the last), each position's record by the count of bits
+    at or before it, its first hop (a literal byte and a chain's stop are
+    roots, here pointing to themselves; a hop below 0 reads position 0);
+    then window by window in order, a first hop that leaves the window
+    takes its root there at once and pointer doubling settles the chains
+    inside the window; and each root's value. Returns ``(plane, rounds)``:
+    the ``(B, d_pad)`` int32 plane, which equals :func:`resolve_fh_plain`'s,
+    and the doubling rounds of each window, ``(B, ceil(d_pad / window))``
+    int64, every round taken all at once (the kernel doubles in place,
+    which can only end sooner)."""
+    b, cap = startsx.shape
+    dev = startsx.device
+    sx = startsx.to(torch.int64)
+    lim = declens.to(torch.int64).clamp(0, d_pad)[:, None]
+    nxt = torch.cat([sx[:, 1:], torch.full((b, 1), 1 << 62, device=dev)], dim=1)
+    covers = (sx >= 0) & (sx < lim) & (sx != nxt)
+    # 1: the covering records in order, and a bit at each one's start.
+    crank = torch.cumsum(covers, dim=1) - 1
+    slot = torch.where(covers, crank, cap)
+    c_start = torch.zeros((b, cap + 1), dtype=torch.int64, device=dev).scatter_(1, slot, sx)
+    c_pay = torch.zeros_like(c_start).scatter_(1, slot, payload.to(torch.int64))
+    bits = torch.zeros((b, d_pad + 1), dtype=torch.int64, device=dev)
+    bits.scatter_(1, torch.where(covers, sx, d_pad), 1)
+    rank = torch.cumsum(bits[:, :d_pad], dim=1) - 1
+    # 2: first hops; before the first record, a copy of offset 1 at 0.
+    start = torch.where(rank >= 0, c_start.gather(1, rank.clamp(min=0)), 0)
+    pay = torch.where(rank >= 0, c_pay.gather(1, rank.clamp(min=0)), 0)
+    d = torch.arange(d_pad, device=dev).expand(b, d_pad)
+    j = d - start
+    w1 = pay & 0x1FFFF
+    lit = (pay >> 17) == 1
+    off = w1.clamp(min=1)
+    h = start - off + torch.where(j < off, j, j % off)
+    hop = torch.where(lit, d, torch.where((h >= 0) & (h < d), h, torch.where((h < 0) & (d > 0), 0, d)))
+    live = d < lim
+    hop = torch.where(live, hop, d)
+    val = torch.where(lit, FLAG + w1 + j, h)
+    # 3: origins, window by window in order.
+    n_win = -(-d_pad // window)
+    rounds = torch.zeros((b, n_win), dtype=torch.int64, device=dev)
+    for k, base in enumerate(range(0, d_pad, window)):
+        g = hop[:, base : base + window]
+        g = torch.where(g < base, hop.gather(1, g), g)
+        hop[:, base : base + window] = g  # the kernel's entries before doubling
+        p = d[:, base : base + window]
+        open_ = (g >= base) & (g != p)
+        while bool(open_.any()):
+            rounds[:, k] += open_.any(1).to(torch.int64)
+            g2 = hop.gather(1, g)
+            root = g2 == g
+            g = torch.where(open_ & ~root, g2, g)
+            open_ = open_ & ~root & (g >= base)
+            hop[:, base : base + window] = g
+        hop[:, base : base + window] = g
+    # 4: each origin's value, FLAG past declen.
+    return torch.where(live, val.gather(1, hop), FLAG).to(torch.int32), rounds
+
+
 @functools.cache
 def _kernels():
     lib = _build.kernel_lib("resolve")
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     fh = lib.stpu_cuda_resolve_fh
-    fh.argtypes = [p, p, i64, i64, p, i64, ctypes.c_int, p, p]
+    fh.argtypes = [p, p, i64, i64, p, i64, p, p]
     fh.restype = ctypes.c_int
     rs = lib.stpu_cuda_resolve
     rs.argtypes = [p, i64, i64, ctypes.c_int, p, p]
@@ -183,8 +246,9 @@ def _check_plane_inputs(tensors, d_pad: int):
 
 def resolve_fh(startsx, payload, declens, d_pad: int):
     """K8: records to the resolved plane ``(B, d_pad)`` int32, every live
-    byte ``FLAG + src`` (or left ``< FLAG`` where its chain did not resolve)
-    and ``FLAG`` past ``declen``. Inputs from :func:`records_to_kernel_inputs`
+    byte ``FLAG + src`` (or left ``< FLAG`` where its chain does not end at
+    a literal) and ``FLAG`` past ``declen``: the plane of
+    :func:`resolve_fh_plain`. Inputs from :func:`records_to_kernel_inputs`
     and ``declens`` ``(B,)`` int32."""
     b, cap = startsx.shape
     _check_plane_inputs((startsx, payload, declens), d_pad)
@@ -201,7 +265,7 @@ def resolve_fh(startsx, payload, declens, d_pad: int):
     _build.check(
         _kernels()[0](
             startsx.data_ptr(), payload.data_ptr(), b, cap, declens.data_ptr(), d_pad,
-            MAX_ROUNDS, out.data_ptr(), torch.cuda.current_stream(startsx.device).cuda_stream,
+            out.data_ptr(), torch.cuda.current_stream(startsx.device).cuda_stream,
         ),
         "resolve_fh",
     )

@@ -241,6 +241,27 @@ def test_parse_kernel_matches_plain(dev):
     assert int(got[2][..., 0].max()) > 50 and not got[2][..., 1].any()
 
 
+def test_parse_kernel_on_padding_and_short_blocks(dev):
+    """Padding rows (no walk: coalesced zeros) between short blocks: a
+    block shorter than one segment, lengths that are not whole segments,
+    and segments whose records end part way through a sector (written a
+    sector at a time, the rest of the last one zero)."""
+    datas = [b"", CHUNKS[0][:300], b"", CHUNKS[1][:5000], b"", b"", CHUNKS[3][:513],
+             CHUNKS[5][:777], b"", CHUNKS[0][:40000]]
+    blocks, lens = packing.batch_streams(datas, 65536)
+    bt, lt = torch.from_numpy(blocks).to(dev), torch.from_numpy(lens).to(dev)
+    jw, _ = encode_flat.prepass(bt, lt)
+    before = parse.launches
+    got = parse.parse_blocks(lt, jw, bt)
+    torch.cuda.synchronize()
+    assert parse.launches == before + 1
+    want = parse.parse_blocks_plain(lt, jw, bt)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    counts = got[2][..., 0]
+    assert not counts[lt == 0].any() and int((counts % 8).max()) > 0
+
+
 def test_emit_kernels_match_plain(dev):
     bt, lt, jw = _encode_inputs(dev)
     rec = parse.parse_blocks(lt, jw, bt)
@@ -384,11 +405,13 @@ def _on(dev, *arrays):
 
 def test_resolve_kernels_match_plain(dev):
     """K8 and K9 against their plain versions on the JAX package's resolve
-    cases and two rows the scan cut short (one with no record at all):
-    whole planes where the rows resolve, the unresolved flag everywhere.
-    Then the route's bytes against the data."""
+    cases, two rows the scan cut short (one with no record at all) and
+    deep chains: whole planes where the rows resolve, the unresolved flag
+    everywhere (K8 also gives the plain version's values on the flagged
+    rows). Then the route's bytes against the data."""
     cases = resolve_cases()
-    rows = [raw_body(c) for c in cases] + [(b"\x61", 3), (b"\x00a\x1d\x01", 5)]
+    deep = [raw_body(b"a" * 65536), raw_body(bytes(range(7)) * 9000)]
+    rows = [raw_body(c) for c in cases] + [(b"\x61", 3), (b"\x00a\x1d\x01", 5)] + deep
     srcs, _, declens, recs, nops, _ = scan_batch(rows)
     s_t, r_t, n_t, d_t = _on(dev, srcs, recs, nops.astype(np.int32), declens)
     d_pad = 1 << 16
@@ -405,7 +428,11 @@ def test_resolve_kernels_match_plain(dev):
         flags = (g < resolve.FLAG).any(dim=1)
         assert torch.equal(flags, (w < resolve.FLAG).any(dim=1)), name
         assert torch.equal(g[~flags], w[~flags]), name
-    assert (got["resolve_fh"] < resolve.FLAG).any(dim=1).tolist() == [False] * (len(rows) - 2) + [True, False]
+    assert torch.equal(got["resolve_fh"], want["resolve_fh"])
+    assert (got["resolve_fh"] < resolve.FLAG).any(dim=1).tolist() == (
+        [False] * len(cases) + [True, False] + [False] * len(deep))
+    rows = rows[: len(cases) + 2]
+    s_t, r_t, n_t, d_t = s_t[: len(rows)], r_t[: len(rows)], n_t[: len(rows)], d_t[: len(rows)]
     for fused in (True, False):
         out, fb = resolve.decode_resolve_batch(s_t, r_t, n_t, d_t, d_pad, use_fused=fused)
         host = out.cpu().numpy()
@@ -413,6 +440,25 @@ def test_resolve_kernels_match_plain(dev):
         for i, c in enumerate(cases):
             assert host[i, : len(c)].tobytes() == c and not host[i, len(c):].any()
         assert host[-1, :5].tolist() == [97, 29, 1, 0, 0]
+
+
+@pytest.mark.parametrize("d_pad", [16384, 32768])
+def test_fused_resolve_kernel_on_narrower_rows(dev, d_pad):
+    """K8 at the route's narrower widths (less shared memory, more CTAs an
+    SM): corpus rows, deep chains, overlapping copies and cut rows, whole
+    planes against the plain version."""
+    rows = [raw_body(load_corpus("kppkn.gtb")[:d_pad]), raw_body(b"a" * d_pad),
+            raw_body(bytes(range(7)) * (d_pad // 7)), (b"\x61", 3), (b"\x00a\x1d\x01", 5)]
+    rows += overlap_rows(tuple(range(1, 130, 4)), copies=20)
+    srcs, _, declens, recs, nops, _ = scan_batch(rows)
+    _, r_t, n_t, d_t = _on(dev, srcs, recs, nops.astype(np.int32), declens)
+    startsx, payload = resolve.records_to_kernel_inputs(r_t, n_t, d_t, d_pad)
+    before = resolve.launches["resolve_fh"]
+    got = resolve.resolve_fh(startsx, payload, d_t, d_pad)
+    torch.cuda.synchronize()
+    assert resolve.launches["resolve_fh"] == before + 1
+    assert torch.equal(got, resolve.resolve_fh_plain(startsx, payload, d_t, d_pad))
+    assert (got < resolve.FLAG).any(dim=1).tolist() == [False] * 3 + [True, False] + [False] * (len(rows) - 5)
 
 
 def test_records_kernel_matches_plain(dev):
