@@ -85,6 +85,16 @@ a graph cannot hold), and ``call_ms`` over wrapper calls; K4's and K8's
 (mean and most over the live blocks, ``parse.parse_lockstep``'s step
 counts).
 
+K1 is held and timed at 512 rows of 65,536 random bytes with random
+lengths and on the frame's largest launch group (455 decoded rows with the
+chunks' lengths, as the flat route checks them; its CRCs also against the
+host codec's): ``ms`` and ``group_ms`` device-only (50 wrapper calls in a
+CUDA graph), ``call_ms`` and ``group_call_ms`` over calls, and the
+wrapper's host time a call on the host's clock. K5's ``ms`` is
+device-only too (its wrapper's calls in a graph), beside ``call_ms``, and
+its walk followed in numpy (``emit.fused_emit_walk``) must give the plain
+version's indices on the compress group's first 16 rows.
+
 It prints one ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -324,31 +334,73 @@ def main() -> int:
 
     kernels = []
 
-    # -- K1 CRC32C at the main path's shape ----------------------------------------
+    # -- K1 CRC32C ---------------------------------------------------------------------
+    # At 512 x 65536 with random lengths (the row's shape since the first
+    # port) and on the frame's largest launch group (455 decoded rows with
+    # the chunks' lengths, as ops/api.py calls crc32c_masked_blocks there),
+    # masked and unmasked against the plain version, and the group's CRCs
+    # against the host codec's. ms and group_ms with the host out of the
+    # window (50 wrapper calls in a CUDA graph), call_ms over 50 calls back
+    # to back, and the wrapper's host time a call (calls issued with no
+    # synchronize, the host's clock).
+    def crc_case(rows, lens_t):
+        got = crc32c.crc32c_masked_blocks(rows, lens_t)
+        want = crc32c.crc32c_plain(rows, lens_t, masked=True)
+        got_u = crc32c.crc32c_blocks(rows, lens_t)
+        want_u = crc32c.crc32c_plain(rows, lens_t, masked=False)
+        call = lambda: crc32c.crc32c_masked_blocks(rows, lens_t)  # noqa: E731
+        n_bytes = int(lens_t.clamp(0, rows.shape[1]).sum())
+        nbytes = n_bytes + 4 * rows.shape[0] + 8 * rows.shape[0] + 4 * 4 * 256
+        return got, (torch.equal(got, want) and torch.equal(got_u, want_u),
+                     max(max_abs_err(got, want), max_abs_err(got_u, want_u)),
+                     device_ms(call, 50), cuda_ms(call, 50), bound_ms(nbytes, 3 * n_bytes))
+
+    def host_us(fn, calls=200):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return t / calls * 1e6
+
     rng = np.random.default_rng(7)
     b, s = 512, 65536
     rows = torch.from_numpy(rng.integers(0, 256, (b, s), dtype=np.uint8)).to(dev)
     lens_np = rng.integers(0, s + 1, b).astype(np.int32)
     lens_np[:2] = (0, s)
     lens = torch.from_numpy(lens_np).to(dev)
-    got = crc32c.crc32c_masked_blocks(rows, lens)
-    want = crc32c.crc32c_plain(rows, lens, masked=True)
-    got_u = crc32c.crc32c_blocks(rows, lens)
-    want_u = crc32c.crc32c_plain(rows, lens, masked=False)
-    equal = torch.equal(got, want) and torch.equal(got_u, want_u)
-    nbytes = int(lens_np.sum()) + 4 * b + 8 * b + 4 * (256 + 1024)
-    bnd, by = bound_ms(nbytes, 3 * int(lens_np.sum()))
+    _, (equal, err, ms1, call1, (bnd, by)) = crc_case(rows, lens)
+    big = max(groups, key=len)
+    gd_big = [chunks[i][1] for i in big]
+    decoded = native.decompress_batch(
+        [write_varu64(gd_big[j]) + bodies[i] for j, i in enumerate(big)])
+    grows = np.zeros((len(big), packing.pad_to_bucket(max(gd_big), 1024)), np.uint8)
+    for j, x in enumerate(decoded):
+        grows[j, : gd_big[j]] = np.frombuffer(x, np.uint8)
+    grows_t = torch.from_numpy(grows).to(dev)
+    glens_t = torch.tensor(gd_big, dtype=torch.int32, device=dev)
+    gcrc, (g_equal, g_err, g_ms, g_call, (g_bnd, _)) = crc_case(grows_t, glens_t)
+    host_codec = torch.equal(gcrc.cpu(), torch.tensor([native.crc32c_masked(x) for x in decoded]))
     kernels.append({
         "name": "crc32c", "route": "cuda", "source": "snappy_tpu_torch/csrc/crc32c.cu",
         "replaces": "snappy_tpu/ops/pallas/crc32c.py:64 crc32c_blocks_pallas",
-        "shape": [b, s], "equal": equal,
-        "max_abs_err": max(max_abs_err(got, want), max_abs_err(got_u, want_u)),
-        "ms": cuda_ms(lambda: crc32c.crc32c_masked_blocks(rows, lens), 50),
+        "shape": [b, s], "equal": equal and g_equal and host_codec, "max_abs_err": max(err, g_err),
+        "ms": ms1, "call_ms": call1,
         "plain_ms": cuda_ms(lambda: crc32c.crc32c_plain(rows, lens, True), 3, warm=1),
         "bound_ms": bnd, "bound_by": by, "library_ms": None,
+        "group_shape": list(grows.shape), "group_ms": g_ms, "group_call_ms": g_call,
+        "group_bound_ms": g_bnd, "group_equals_host_codec": host_codec,
+        "host_us_per_call": host_us(lambda: crc32c.crc32c_masked_blocks(grows_t, glens_t)),
     })
-    del rows
-    check(equal, "K1 crc32c differs from its plain version")
+    print(f"K1: 512 x 65536 {ms1:.6f} ms device-only, {call1:.6f} over calls (bound {bnd:.6f}); "
+          f"455-row group {g_ms:.6f} and {g_call:.6f} (bound {g_bnd:.6f}); the wrapper "
+          f"{kernels[-1]['host_us_per_call']:.3f} us a call on the host's clock")
+    del rows, grows_t, decoded
+    check(equal and g_equal and host_codec,
+          "K1 crc32c differs from its plain version or the host codec")
 
     # -- K2 flat gather, both layouts, on corpus chunks as the main path groups them --
     # Timed two ways, each for the kernel and for its torch.gather yardstick:
@@ -646,6 +698,19 @@ def main() -> int:
             "bound_ms": bnd, "bound_by": by,
             "library_ms": cuda_ms(lib, 20) if lib else None,
         })
+    # K5 device-only: its wrapper reads nothing back, so its calls go into a
+    # CUDA graph; "ms" above is over wrapper calls. Its walk, followed in
+    # numpy (emit.fused_emit_walk), must give the plain version's indices on
+    # the group's first 16 rows.
+    k5 = next(k for k in kernels if k["name"] == "fused_emit")
+    k5["call_ms"] = k5["ms"]
+    k5["ms"] = device_ms(lambda: emit.fused_emit(*plan, src), 10)
+    walk_rows = [x[:16].cpu() for x in plan]
+    k5["walk_equals_plain"] = torch.equal(emit.fused_emit_walk(*walk_rows),
+                                          emit.shift_idx_plain(*walk_rows))
+    check(k5["walk_equals_plain"], "K5's walk model differs from its plain version")
+    print(f"K5: {k5['ms']:.6f} ms device-only, {k5['call_ms']:.6f} over calls (bound "
+          f"{k5['bound_ms']:.6f}); its walk model equals the plain version on 16 rows")
     check(torch.equal(out5, out6), "K5 and K6 give different bytes")
     check(all(k["equal"] for k in kernels[-3:]), "K5 or K6 differs from its plain version")
 

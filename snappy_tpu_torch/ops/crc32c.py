@@ -7,8 +7,13 @@ are ignored, whatever they hold; lengths are clamped to ``[0, S]``.
 
 On a CUDA tensor the wrapper launches the kernel (or raises); on a CPU
 tensor it runs the plain PyTorch version, which repeats the kernel's
-arithmetic: a table CRC per 1/256 segment of each row, then the segment
-registers combined with the GF(2) shift operators ``M_{2^k}``.
+arithmetic: each row's whole 16-byte words right-aligned into chunks of
+``THREADS * WORDS`` words with leading zero words, the row's initial
+``0xFFFFFFFF`` XORed into its first word, slicing by 4 over each
+thread's ``WORDS`` words from a register of 0, the segment registers
+advanced by the fixed operators of their lane and warp (M_n advances past
+``n`` zero bytes; eight nibble lookups each) and XORed together, the
+chunks joined in order, and the ``len % 16`` tail in byte steps.
 """
 
 from __future__ import annotations
@@ -20,13 +25,14 @@ import numpy as np
 import torch
 
 from ..format.constants import CASTAGNOLI_POLY, CRC_MASK_DELTA
-from ..format.tables import crc32c_table
+from ..format.tables import crc32c_table16
 from . import _build
 
 #: Kernel launches since the count was last reset (main-path evidence).
 launches = 0
 
-THREADS = 256  # segments per row; csrc/crc32c.cu kThreads
+THREADS = 1024  # segments per chunk; csrc/crc32c.cu kThreads
+WORDS = 4  # 16-byte words a segment; kWords
 _FF = 0xFFFFFFFF
 
 
@@ -70,49 +76,114 @@ def shift_operators() -> np.ndarray:
     return np.asarray(ops, dtype=np.uint32)
 
 
+def _apply_np(cols, v: np.ndarray) -> np.ndarray:
+    """The operator with columns ``cols`` on every register of ``v``."""
+    bits = (v.astype(np.uint64)[..., None] >> np.arange(32, dtype=np.uint64)) & 1
+    return np.bitwise_xor.reduce(np.where(bits == 1, np.asarray(cols, np.uint64), 0), axis=-1)
+
+
+@functools.cache
+def shift_columns(n: int) -> np.ndarray:
+    """Columns of M_n, the advance past ``n`` zero bytes: the product of
+    the ``shift_operators`` of ``n``'s set bits (they commute)."""
+    cols = np.uint64(1) << np.arange(32, dtype=np.uint64)  # the identity
+    for k in range(n.bit_length()):
+        if n >> k & 1:
+            cols = _apply_np(shift_operators()[k], cols)
+    return cols.astype(np.uint32)
+
+
+def nibble_tables(n: int) -> np.ndarray:
+    """M_n as eight nibble tables, ``(8, 16)`` uint32: ``tab[q, v] =
+    M_n(v << 4q)``, so that ``M_n(x)`` is the XOR of ``tab[q, (x >> 4q) &
+    15]`` over ``q``."""
+    v = np.arange(16, dtype=np.uint64)[None, :] << (4 * np.arange(8, dtype=np.uint64))[:, None]
+    return _apply_np(shift_columns(n), v).astype(np.uint32)
+
+
+@functools.cache
+def kernel_tables() -> tuple[np.ndarray, np.ndarray]:
+    """The kernel's two table arguments: the ``(4, 256)`` slicing-by-4
+    tables (byte ``p`` of a 4-byte word through table ``3 - p``), and the
+    fixed operators as :func:`nibble_tables`, ``(32 + THREADS / 32 + 1, 8,
+    16)``: lane ``l``'s M_{(31 - l) seg}, warp ``w``'s M_{(THREADS / 32 - 1
+    - w) 32 seg}, and the chunk's M_{THREADS seg}, seg = 16 * WORDS bytes
+    (a thread's segment)."""
+    seg, warps = 16 * WORDS, THREADS // 32
+    dists = ([(31 - lane) * seg for lane in range(32)]
+             + [(warps - 1 - w) * 32 * seg for w in range(warps)] + [THREADS * seg])
+    return crc32c_table16()[:4].copy(), np.stack([nibble_tables(d) for d in dists])
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch version
 # ---------------------------------------------------------------------------
 
 
-def _apply(cols: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    acc = torch.zeros_like(v)
-    for j in range(32):
-        acc ^= torch.where((v >> j) & 1 == 1, cols[j], 0)
-    return acc
-
-
-def _shift_zeros(ops: torch.Tensor, r: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
-    """Advance raw registers ``r`` past ``n`` zero bytes (elementwise)."""
-    for k in range((int(n.max()) if n.numel() else 0).bit_length()):
-        r = torch.where((n >> k) & 1 == 1, _apply(ops[k], r), r)
+def _lookup8(tab: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Eight nibble lookups, ``tab`` ``(8, 16)``, on registers ``v``."""
+    r = torch.zeros_like(v)
+    for q in range(8):
+        r ^= tab[q][(v >> (4 * q)) & 15]
     return r
 
 
 def crc32c_plain(rows: torch.Tensor, lengths: torch.Tensor, masked: bool) -> torch.Tensor:
-    """The kernel's arithmetic in PyTorch ops, on any device."""
+    """The kernel's arithmetic in PyTorch ops, on any device. Every row
+    takes the batch's largest chunk count: a leading chunk of zero words
+    leaves the register at 0, as the kernel's fewer chunks do."""
     b, s = rows.shape
     dev = rows.device
-    table = torch.from_numpy(crc32c_table().astype(np.int64)).to(dev)
-    ops = torch.from_numpy(shift_operators().astype(np.int64)).to(dev)
-    lens = lengths.to(torch.int64).clamp(0, s)[:, None]  # (B, 1)
-    seg = ((lens + THREADS - 1) // THREADS + 15) // 16 * 16
-    t = torch.arange(THREADS, device=dev, dtype=torch.int64)[None, :]
-    lo = torch.minimum(t * seg, lens)
-    hi = torch.minimum(lo + seg, lens)
-    r = torch.zeros((b, THREADS), dtype=torch.int64, device=dev)
-    data = rows.to(torch.int64)
-    for k in range(int(seg.max()) if b else 0):
-        pos = lo + k
-        byte = data.gather(1, pos.clamp(max=s - 1))
-        stepped = table[(r ^ byte) & 0xFF] ^ (r >> 8)
-        r = torch.where(pos < hi, stepped, r)
-    r = _shift_zeros(ops, r, lens - hi)
-    while r.shape[1] > 1:
-        half = r.shape[1] // 2
-        r = r[:, :half] ^ r[:, half:]
-    init = _shift_zeros(ops, torch.full_like(lens, _FF), lens)
-    crc = (r ^ init ^ _FF)[:, 0]
+    if b == 0:
+        return torch.zeros(0, dtype=torch.int64, device=dev)
+    t4_np, ops_np = kernel_tables()
+    t4 = torch.from_numpy(t4_np.astype(np.int64)).to(dev)
+    ops = torch.from_numpy(ops_np.astype(np.int64)).to(dev)
+    lens = lengths.to(torch.int64).clamp(0, s)
+    if s < 16:  # room for the gathers below; no byte past a length is read
+        rows = torch.cat([rows, rows.new_zeros((b, 16 - s))], 1)
+    whole = lens >> 4
+    chunk_words = THREADS * WORDS
+    n_chunks = max(1, -(-int(whole.max()) // chunk_words))
+    n_words = n_chunks * chunk_words
+    # Right-aligned whole words; a negative index is a leading zero word.
+    wi = torch.arange(n_words, device=dev)[None, :] - (n_words - whole)[:, None]
+    at = (wi.clamp(min=0) * 16)[..., None] + torch.arange(16, device=dev)
+    words = rows.gather(1, at.view(b, -1)).view(b, n_words, 16).to(torch.int64)
+    words = torch.where((wi >= 0)[..., None], words, 0)
+    words[..., :4] ^= torch.where(wi == 0, 0xFF, 0)[..., None]  # the initial value
+    words = words.view(b, n_chunks, THREADS, WORDS, 16)
+    # Slicing by 4 over each segment's words, 4 bytes a step.
+    r = torch.zeros((b, n_chunks, THREADS), dtype=torch.int64, device=dev)
+    for i in range(WORDS):
+        for lane in range(4):
+            x = words[..., i, 4 * lane : 4 * lane + 4]
+            x = (x[..., 0] | x[..., 1] << 8 | x[..., 2] << 16 | x[..., 3] << 24) ^ r
+            r = t4[3][x & 0xFF] ^ t4[2][(x >> 8) & 0xFF] ^ t4[1][(x >> 16) & 0xFF] ^ t4[0][x >> 24]
+    # The fixed operators: each lane's, the XOR of the warp, each warp's,
+    # the XOR of the warps; then the chunks in order.
+    warps = THREADS // 32
+    for first, count in ((0, 32), (32, warps)):
+        r = r.view(b, n_chunks, -1, count)
+        own = torch.arange(count, device=dev) * 16
+        moved = torch.zeros_like(r)
+        for q in range(8):
+            moved ^= ops[first : first + count, q].reshape(-1)[own + ((r >> (4 * q)) & 15)]
+        while moved.shape[-1] > 1:
+            half = moved.shape[-1] // 2
+            moved = moved[..., :half] ^ moved[..., half:]
+        r = moved[..., 0]
+    r = r.view(b, n_chunks)
+    acc = torch.zeros(b, dtype=torch.int64, device=dev)
+    for c in range(n_chunks):
+        acc = _lookup8(ops[-1], acc) ^ r[:, c]
+    acc = torch.where(whole == 0, _FF, acc)
+    # The tail's len % 16 bytes in byte steps.
+    for i in range(15):
+        byte = rows.gather(1, (whole * 16 + i).clamp(max=rows.shape[1] - 1)[:, None])[:, 0]
+        stepped = t4[0][(acc ^ byte) & 0xFF] ^ (acc >> 8)
+        acc = torch.where(i < (lens & 15), stepped, acc)
+    crc = acc ^ _FF
     if masked:
         crc = (((crc >> 15) | (crc << 17)) + CRC_MASK_DELTA) & _FF
     return crc
@@ -133,38 +204,38 @@ def _kernel():
 
 
 @functools.cache
-def _device_tables(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The byte table and shift operators as int32 bit patterns on ``device``."""
-    table = torch.from_numpy(crc32c_table().view(np.int32).copy()).to(device)
-    ops = torch.from_numpy(shift_operators().view(np.int32).reshape(-1).copy()).to(device)
-    return table, ops
+def _device_tables(index: int) -> tuple[int, int, tuple[torch.Tensor, ...]]:
+    """The kernel's tables as int32 bit patterns on card ``index``: their
+    two pointers, and the tensors that keep them alive."""
+    keep = tuple(torch.from_numpy(np.ascontiguousarray(x).view(np.int32).reshape(-1)).to(
+        torch.device("cuda", index)) for x in kernel_tables())
+    return keep[0].data_ptr(), keep[1].data_ptr(), keep
 
 
 def _crc(rows: torch.Tensor, lengths: torch.Tensor, masked: bool) -> torch.Tensor:
     if rows.dtype != torch.uint8 or rows.dim() != 2:
         raise TypeError(f"rows must be a 2-D uint8 tensor, got {rows.dtype} {tuple(rows.shape)}")
-    if lengths.dtype != torch.int32 or lengths.shape != rows.shape[:1]:
-        raise TypeError(f"lengths must be int32 of shape ({rows.shape[0]},)")
-    if lengths.device != rows.device:
+    b, s = rows.shape
+    if lengths.dtype != torch.int32 or lengths.shape != (b,):
+        raise TypeError(f"lengths must be int32 of shape ({b},)")
+    dev = rows.device
+    if lengths.device != dev:
         raise ValueError("rows and lengths must be on one device")
-    if rows.device.type == "cpu":
-        return crc32c_plain(rows, lengths, masked)
-    if rows.device.type != "cuda":
-        raise ValueError(f"unsupported device {rows.device}")
+    if dev.type != "cuda":
+        if dev.type == "cpu":
+            return crc32c_plain(rows, lengths, masked)
+        raise ValueError(f"unsupported device {dev}")
     if not (rows.is_contiguous() and lengths.is_contiguous()):
         raise ValueError("rows and lengths must be contiguous")
-    out = torch.empty(rows.shape[0], dtype=torch.int64, device=rows.device)
-    if rows.shape[0] == 0:
+    out = torch.empty(b, dtype=torch.int64, device=dev)
+    if b == 0:
         return out
-    table, ops = _device_tables(rows.device)
-    stream = torch.cuda.current_stream(rows.device).cuda_stream
+    table, ops, _ = _device_tables(dev.index)
     global launches
     launches += 1
     _build.check(
-        _kernel()(
-            rows.data_ptr(), rows.shape[0], rows.shape[1], lengths.data_ptr(),
-            table.data_ptr(), ops.data_ptr(), int(masked), out.data_ptr(), stream,
-        ),
+        _kernel()(rows.data_ptr(), b, s, lengths.data_ptr(), table, ops, masked, out.data_ptr(),
+                  torch._C._cuda_getCurrentRawStream(dev.index)),
         "crc32c",
     )
     return out

@@ -22,14 +22,17 @@ On CUDA tensors the wrappers launch the kernels (or raise); on CPU tensors
 they run the plain versions, which take the windowed sum without assuming
 any order of the window. The kernels binary-search the window, which relies
 on the breakpoints being sorted (the plan's construction), so comparing the
-two on the card checks that too.
+two on the card checks that too; :func:`fused_emit_walk` follows K5's walk
+step for step in numpy, so that the CPU tests hold that order too.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 
+import numpy as np
 import torch
 
 from . import _build
@@ -43,6 +46,12 @@ OUT_ROWS_PAD = N_GROUPS * GROUP // LANES  # 640
 #: meets <= 514 records -> <= 1542 breakpoints + 127 of row alignment
 #: = 1669 < 14 * 128. No input can overflow this window.
 BP_WIN_ROWS = 14
+
+#: K5's walk (csrc/emit.cu): threads a CTA, groups a step, plan rows held.
+WALK_THREADS = 256
+STEP_GROUPS = WALK_THREADS // 64
+RING_ROWS = 32
+RUN_GROUPS = 8  # groups a CTA walks
 
 #: Kernel launches per entry since the counts were last reset.
 entry_launches = {"fused_emit": 0, "shift_idx": 0, "emit_bytes": 0}
@@ -72,6 +81,95 @@ def shift_idx_plain(lo_row, base, rows_g, out_len, bp_rows, dlt_rows):
     idx = torch.cumsum(hist[..., :GROUP], 2, dtype=torch.int32) + base[..., None] + d
     live = g0[..., 0] < out_len[:, None]
     return torch.where(live[..., None], idx, 0).view(b, N_GROUPS * GROUP)
+
+
+def fused_emit_walk(lo_row, base, rows_g, out_len, bp_rows, dlt_rows):
+    """K5's walk in numpy, step for step: ``(B, 81920)`` int32 source
+    indices of the live groups (0 in the rest), as :func:`shift_idx_plain`
+    gives them when every window is sorted.
+
+    A row is walked in runs of ``RUN_GROUPS`` groups, each run on its own
+    and ``STEP_GROUPS`` groups a step, fewer where the step's
+    windows would span more than ``RING_ROWS`` plan rows. The rows the step
+    covers are held in a ring (row ``r`` in slot ``r % RING_ROWS``); rows
+    it shares with the last step are kept, the rest loaded, their deltas
+    taken into an exclusive prefix (uint32) that runs from the last time
+    the ring started afresh. Each thread of 16 bytes ``d0 .. d0 + 15``
+    binary-searches its group's window for the first steps above ``d0``
+    (``k0``) and above ``d0 + 15`` (``k1``, at most ``k0 + 255``), counts
+    the steps between at their bytes and sums the counts up, so byte ``i``
+    reads the prefix at ``k0`` plus its count (past 254 steps, a search for
+    every byte). Every live byte's index is computed, also past
+    ``out_len``."""
+    lo_row, base, rows_g, out_len = (
+        np.asarray(x.cpu(), np.int64) for x in (lo_row, base, rows_g, out_len))
+    bsz, nrows, _ = bp_rows.shape
+    bp = np.asarray(bp_rows.cpu(), np.int64).reshape(bsz, -1)
+    dl = np.asarray(dlt_rows.cpu(), np.int64).reshape(bsz, -1)
+    idx = np.zeros((bsz, N_GROUPS * GROUP), np.int64)
+    ring_bp = np.zeros(RING_ROWS * LANES, np.int64)
+    ring_ex = np.zeros(RING_ROWS * LANES, np.int64)
+    mask = (1 << 32) - 1
+
+    def slot(x):
+        return (x >> 7) % RING_ROWS * LANES + (x & 127)
+
+    for b, run in itertools.product(range(bsz), range(0, N_GROUPS, RUN_GROUPS)):
+        olen = int(out_len[b])
+        live = max(min(-(-olen // GROUP), run + RUN_GROUPS, N_GROUPS), run) if olen > 0 else run
+        lo = np.clip(lo_row[b, :live], 0, nrows)
+        end = np.minimum(lo + np.clip(rows_g[b, :live], 0, BP_WIN_ROWS), nrows)
+        r0 = r1 = carry = 0
+        g = run
+        while g < live:
+            n = min(STEP_GROUPS, live - g)
+            while True:
+                u0, u1 = int(lo[g : g + n].min()), int(end[g : g + n].max())
+                if u1 - u0 <= RING_ROWS or n == 1:
+                    break
+                n -= 1
+            if u0 < r0 or u0 > r1:  # no overlap: the ring starts afresh
+                r1, carry = u0, 0
+            r0 = u0
+            if u1 > r1:
+                at = np.arange(r1 * LANES, u1 * LANES)
+                d = dl[b, at]
+                ring_bp[slot(at)] = bp[b, at]
+                ring_ex[slot(at)] = (carry + np.cumsum(d) - d) & mask
+                carry = (carry + int(d.sum())) & mask
+                r1 = u1
+            lim = r1 * LANES
+
+            def ex_at(x):
+                return int(ring_ex[slot(x)]) if x < lim else carry
+
+            def first_above(lo, hi, d):  # the kernel's binary search
+                while lo < hi:
+                    mid = (lo + hi) >> 1
+                    if ring_bp[slot(mid)] <= d:
+                        lo = mid + 1
+                    else:
+                        hi = mid
+                return lo
+
+            for gq in range(g, g + n):
+                s, e = int(lo[gq]) * LANES, int(end[gq]) * LANES
+                off = int(base[b, gq]) - ex_at(s)
+                for d0 in range(gq * GROUP, (gq + 1) * GROUP, 16):
+                    k0 = first_above(s, e, d0)
+                    k1 = first_above(k0, min(e, k0 + 255), d0 + 15)
+                    if k1 < k0 + 255:  # the steps counted at their bytes, summed up
+                        count = np.zeros(16, np.int64)
+                        for j in range(k0, k1):  # at is 1..15 in a sorted window
+                            at = int(ring_bp[slot(j)]) - d0
+                            count[(at & 7) + (8 if at >= 8 else 0)] += 1
+                        ks = k0 + np.cumsum(count)
+                    else:
+                        ks = [first_above(s, e, d) for d in range(d0, d0 + 16)]
+                    o = np.array([ex_at(int(k)) for k in ks], np.int64)
+                    idx[b, d0 : d0 + 16] = (np.arange(d0, d0 + 16) + off + o) & mask
+            g += n
+    return torch.from_numpy(idx.astype(np.uint32).view(np.int32))
 
 
 def emit_bytes_plain(src, idx, out_len):

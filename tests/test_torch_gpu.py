@@ -67,10 +67,69 @@ def test_crc32c_kernel_matches_plain(dev):
         assert got.device.type == "cuda"
         assert torch.equal(got, crc32c.crc32c_plain(rows, lens, masked))
     assert crc32c.launches == before + 2
-    # Odd widths and unaligned rows take the byte loop.
+    # A width that is not a power of two (rows still 16-byte aligned).
     odd = rows[:, 1:4001].contiguous()
     got = crc32c.crc32c_blocks(odd, lens.clamp(max=4000))
     assert torch.equal(got, crc32c.crc32c_plain(odd, lens.clamp(max=4000), False))
+
+
+def test_crc32c_kernel_on_the_group_shape(dev):
+    """455 rows of 65,536 bytes, the flat route's largest launch group:
+    more rows than SMs, so each persistent CTA walks several, fetching the
+    next during this one."""
+    rng = np.random.default_rng(17)
+    b, s = 455, 65536
+    rows = torch.from_numpy(rng.integers(0, 256, (b, s), dtype=np.uint8)).to(dev)
+    lens_np = np.full(b, s, np.int32)
+    lens_np[::7] = rng.integers(0, s + 1, len(lens_np[::7]))
+    lens = torch.from_numpy(lens_np).to(dev)
+    got = crc32c.crc32c_masked_blocks(rows, lens)
+    assert torch.equal(got, crc32c.crc32c_plain(rows, lens, True))
+    host = rows.cpu().numpy()
+    for i in range(0, b, 50):
+        assert int(got[i]) == native.crc32c_masked(host[i, : lens_np[i]].tobytes())
+
+
+@pytest.mark.parametrize("s", [4001, 131077])
+def test_crc32c_kernel_on_unaligned_and_wide_rows(dev, s):
+    """Rows 4,001 bytes apart (not 16-byte aligned: the word loads go byte
+    by byte) and rows past one 65,536-byte chunk, with lengths 0-17, s - 1
+    and s, and dirty bytes past every length; held to the plain version and
+    the host codec."""
+    rng = np.random.default_rng(19)
+    lens_np = np.concatenate([np.arange(18), [s - 1, s], rng.integers(0, s + 1, 12)])
+    lens_np = lens_np.astype(np.int32)
+    b = len(lens_np)
+    rows = torch.from_numpy(rng.integers(0, 256, (b, s), dtype=np.uint8)).to(dev)
+    lens = torch.from_numpy(lens_np).to(dev)
+    for masked, fn in ((True, crc32c.crc32c_masked_blocks), (False, crc32c.crc32c_blocks)):
+        assert torch.equal(fn(rows, lens), crc32c.crc32c_plain(rows, lens, masked))
+    got = crc32c.crc32c_masked_blocks(rows, lens).cpu()
+    host = rows.cpu().numpy()
+    assert [int(x) for x in got] == [native.crc32c_masked(host[i, :n].tobytes())
+                                    for i, n in enumerate(lens_np)]
+
+
+def test_crc32c_kernel_in_a_cuda_graph(dev):
+    """The wrapper reads nothing back, so its launches can be captured in a
+    CUDA graph and replayed (as chip_smoke.py times it), and count once."""
+    rng = np.random.default_rng(23)
+    rows = torch.from_numpy(rng.integers(0, 256, (300, 65536), dtype=np.uint8)).to(dev)
+    lens = torch.from_numpy(rng.integers(0, 65537, 300).astype(np.int32)).to(dev)
+    want = crc32c.crc32c_plain(rows, lens, True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        crc32c.crc32c_masked_blocks(rows, lens)  # builds the tables outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = crc32c.launches
+    with torch.cuda.graph(graph):
+        out = crc32c.crc32c_masked_blocks(rows, lens)
+    assert crc32c.launches == before + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
 
 
 def _flat_cases(layout):
@@ -283,6 +342,51 @@ def test_emit_kernels_match_plain(dev):
     ref_out, ref_len = encode_flat.records_to_bytes(bt, lt, *rec)
     assert torch.equal(out[:, : encode_flat.OUT_W], ref_out) and torch.equal(out_len, ref_len)
     assert not ovf.any()
+
+
+def _emit_plan(dev, datas):
+    blocks, lens = packing.batch_streams(datas, 65536)
+    bt, lt = torch.from_numpy(blocks).to(dev), torch.from_numpy(lens).to(dev)
+    jw, _ = encode_flat.prepass(bt, lt)
+    rec = parse.parse_blocks(lt, jw, bt)
+    *plan, src, ovf = encode_flat._fused_plan(bt, lt, *rec)
+    assert not ovf.any()
+    return bt, lt, rec, plan, src
+
+
+def _emit_all_entries(plan, src):
+    """K5 and K6's two entries against their plain versions."""
+    out = emit.fused_emit(*plan, src)
+    idx = emit.shift_idx(*plan)
+    out2 = emit.emit_bytes(src, idx, plan[3])
+    torch.cuda.synchronize()
+    assert torch.equal(out, emit.fused_emit_plain(*plan, src))
+    assert torch.equal(idx, emit.shift_idx_plain(*plan))
+    assert torch.equal(out2, emit.emit_bytes_plain(src, idx, plan[3])) and torch.equal(out, out2)
+    return out
+
+
+def test_emit_kernels_on_an_all_padding_batch(dev):
+    """Every row padding (out_len 0): K5's CTAs store zeros 16 bytes a store
+    and read no plan; K6 equals its plain versions."""
+    _, _, _, plan, src = _emit_plan(dev, [b""] * 6)
+    assert not plan[3].any()
+    out = _emit_all_entries(plan, src)
+    assert not out.any()
+
+
+def test_emit_kernels_on_one_live_row_among_padding(dev):
+    """One live row (its out_len ends part way through a group) between
+    padding rows: K5's runs of groups past out_len store zeros; the bytes
+    equal the reference emission."""
+    data = load_corpus("alice29.txt")[:50000]
+    bt, lt, rec, plan, src = _emit_plan(dev, [b"", b"", data, b"", b""])
+    olen = int(plan[3][2])
+    assert olen % emit.GROUP and not plan[3][[0, 1, 3, 4]].any()
+    out = _emit_all_entries(plan, src)
+    ref_out, ref_len = encode_flat.records_to_bytes(bt, lt, *rec)
+    assert torch.equal(out[:, : encode_flat.OUT_W], ref_out) and torch.equal(plan[3], ref_len)
+    assert not out[2, olen:].any() and not out[[0, 1, 3, 4]].any()
 
 
 def test_compress_on_the_card(dev):
