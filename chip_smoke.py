@@ -36,8 +36,9 @@ card. Phases:
    kernel but K1: under ``configure(decode_kernels=False)`` (the host's
    op-start bitmaps) and under ``configure(pure_device=True)`` (op
    discovery on the card). The frame, fast, exact, writer, both
-   record-scan and both tensor route paths are then timed end to end, and
-   again with ``ops.api.spans`` on for the breakdown of that same run;
+   record-scan, replay and both tensor route paths are then timed end
+   to end, and again with ``ops.api.spans`` on for the breakdown of that
+   same run;
    every corpus file compressed alone with the fast profile must be no
    larger than the host codec's stream; two corrupted frame streams must
    raise what the host engine raises, on every decode route;
@@ -50,9 +51,20 @@ K8 and K9 (chain resolution) and K10 (record replay) are held against
 their plain versions on the frame's largest launch group (455 rows,
 ``d_pad`` 65536) as the host's record scan leaves it, and K9's path
 (``decode_resolve_batch(use_fused=False)``) must give the host codec's
-bytes there. K8's windowed model (``resolve.resolve_fh_windows``) must
-give K8's plain plane there, and K8's row carries the doubling rounds of
-each window that holds live bytes (mean and most).
+bytes there. K8's and K9's windowed models (``resolve.resolve_fh_windows``,
+``resolve.resolve_windows``) must give their plain planes there, and
+their rows carry the doubling rounds of each window (mean and most).
+
+K3 (replay) is held against its plain version on the small and corrupt
+vectors, 64 corpus chunks, the frame's largest launch group (455 rows,
+also against the host codec's bytes) and the raw row the flatten
+rejects; its windowed model (``replay.replay_windows``) must give the
+kernel's rows and codes on 16 rows of the group. Its ``ms`` (the raw
+row), ``group_ms`` and ``corpus_64_rows_device_ms`` are device-only
+through its C entry (its wrapper reads lengths back), beside the times
+over wrapper calls. The frame stream is also decoded under
+``configure(decode_flat=False)`` (the ``frame_replay`` path): K3 and K1
+once a group and nothing else.
 
 K11 (the grouped flat gather, the JAX package's v3/v4 entry, which no
 library path calls) is held on the same 455-row group, with the host
@@ -589,18 +601,75 @@ def main() -> int:
     fb_body = raw_fb[fb_h:]
     a, d_pad, got, eq_fb, err_fb = replay_case([fb_body], [fb_declen], api._width_bucket(len(fb_body)))
     check(eq_fb and got[0][0, :fb_declen].cpu().numpy().tobytes() == plain_fb, "K3 on the rejected row")
+    # The frame's largest launch group (455 corpus chunks, d_pad 65536), as
+    # the frame_replay route gives it to K3: against the plain version once
+    # (a Python walk of every op, about 20 s) and the host codec's bytes.
+    group_a, group_dpad, got_g, eq_g, err_g = replay_case(
+        [bodies[i] for i in big], [chunks[i][1] for i in big])
+    plain_g = native.decompress_batch(
+        [write_varu64(chunks[i][1]) + bodies[i] for i in big])
+    host_g = got_g[0].cpu().numpy()
+    eq_g = eq_g and not bool(got_g[1].any()) and all(
+        host_g[j, : len(p)].tobytes() == p for j, p in enumerate(plain_g))
+    check(eq_g, "K3 replay differs on the 455-row group")
+    del host_g, plain_g
+    # K3's algorithm in tensor ops (replay.replay_windows) on the group's
+    # first 16 rows: the kernel's bytes and codes, its source windows a row
+    # and its doubling rounds a window.
+    m_dst, m_errs, m_det = replay.replay_windows(*(x[:16] for x in group_a), group_dpad)
+    check(torch.equal(m_dst, got_g[0][:16]) and torch.equal(m_errs, got_g[1][:16]),
+          "K3's windowed model differs from the kernel on 16 rows of the group")
+    k3_model = {"rows": 16, "windows_per_row": float(m_det["windows"].double().mean()),
+                "rounds_per_window": float(m_det["rounds"].sum() / m_det["windows"].sum())}
+    del m_dst, m_errs, m_det
+
+    def k3_device_ms(args, dp, want, reps):
+        """K3 device-only through its C entry (the wrapper reads
+        src_lens.max() and declens.max() back to check them, which a CUDA
+        graph cannot hold); the entry's rows and codes must be the
+        wrapper's."""
+        srcs_t, lens_t, decl_t = args
+        dst = torch.empty((srcs_t.shape[0], dp), dtype=torch.uint8, device=dev)
+        errs = torch.empty(srcs_t.shape[0], dtype=torch.int32, device=dev)
+
+        def call():
+            _build.check(replay._kernel()(
+                srcs_t.data_ptr(), srcs_t.shape[0], srcs_t.shape[1], lens_t.data_ptr(),
+                decl_t.data_ptr(), dp, dst.data_ptr(), errs.data_ptr(),
+                torch.cuda.current_stream().cuda_stream), "replay")
+
+        ms = device_ms(call, reps)
+        check(torch.equal(dst, want[0]) and torch.equal(errs, want[1]),
+              "K3's C entry and its wrapper differ")
+        return ms
+
     nbytes = len(fb_body) + 8 + d_pad + 4
     bnd, by = bound_ms(nbytes)
+    g_bytes = int(group_a[1].sum()) + 12 * len(big) + len(big) * group_dpad
+    g_bnd, _ = bound_ms(g_bytes)
     kernels.append({
         "name": "replay", "route": "cuda", "source": "snappy_tpu_torch/csrc/replay.cu",
         "replaces": "snappy_tpu/ops/pallas/decode.py:1523 decode_batch_pallas",
-        "shape": [1, a[0].shape[1], d_pad], "equal": eq_small and eq_c and eq_fb,
-        "max_abs_err": max(err_small, err_c, err_fb),
-        "ms": cuda_ms(lambda: replay.decode_replay(*a, d_pad), 20),
+        "shape": [1, a[0].shape[1], d_pad], "equal": eq_small and eq_c and eq_fb and eq_g,
+        "max_abs_err": max(err_small, err_c, err_fb, err_g),
+        "ms": k3_device_ms(a, d_pad, got, 20),
+        "call_ms": cuda_ms(lambda: replay.decode_replay(*a, d_pad), 20),
         "plain_ms": cuda_ms(lambda: replay.decode_replay_plain(*a, d_pad), 3, warm=1),
         "bound_ms": bnd, "bound_by": by, "library_ms": None,
+        "group_shape": [len(big), group_a[0].shape[1], group_dpad],
+        "group_ms": k3_device_ms(group_a, group_dpad, got_g, 5),
+        "group_call_ms": cuda_ms(lambda: replay.decode_replay(*group_a, group_dpad), 5),
+        "group_bound_ms": g_bnd,
         "corpus_64_rows_ms": cuda_ms(lambda: replay.decode_replay(*corpus_a, corpus_dpad), 5),
+        "corpus_64_rows_device_ms": k3_device_ms(corpus_a, corpus_dpad, got_c, 5),
+        "model": k3_model,
     })
+    k = kernels[-1]
+    print(f"K3: raw row {k['ms']:.6f} ms device-only, {k['call_ms']:.6f} over calls (bound "
+          f"{bnd:.6f}); 455-row group {k['group_ms']:.6f} device-only, {k['group_call_ms']:.6f} "
+          f"over calls (bound {g_bnd:.6f}); 64 corpus rows {k['corpus_64_rows_device_ms']:.6f} "
+          f"device-only, {k['corpus_64_rows_ms']:.6f} over calls; model on 16 rows {k3_model}")
+    del group_a, got_g
 
     # -- compress: K4, K5 and K6 on the compress path's own launch group ------------
     # The stream's 1,025 blocks padded to 2,048 rows, as compress() batches
@@ -878,6 +947,18 @@ def main() -> int:
     k8["call_ms"] = k8["ms"]
     k8["ms"] = device_ms(lambda: resolve.resolve_fh(startsx, payload, d_t, d_pad), 10)
     k8["rounds_per_window"] = report["resolve_group"]["fh_rounds_per_window"]
+    # K9 likewise: its wrapper reads nothing back.
+    k9 = next(k for k in kernels if k["name"] == "resolve")
+    k9["call_ms"] = k9["ms"]
+    k9["ms"] = device_ms(lambda: resolve.resolve(a0), 10)
+    # K9's algorithm in tensor ops: its plane, and its doubling rounds in
+    # each window.
+    model9, rounds9 = resolve.resolve_windows(a0)
+    check(torch.equal(model9, want9), "K9's windowed model differs from its plain version")
+    k9["rounds_per_window"] = {"max": int(rounds9.max()), "mean": float(rounds9.double().mean())}
+    del model9, rounds9
+    print(f"K9: {k9['ms']:.6f} ms device-only, {k9['call_ms']:.6f} over calls "
+          f"(bound {k9['bound_ms']:.6f}); doubling rounds a window {k9['rounds_per_window']}")
     # K10 device-only through its C entry (the wrapper reads the counts and
     # lengths back to check them); "ms" above is over wrapper calls.
     o10 = torch.empty((len(big), d_pad), dtype=torch.uint8, device=dev)
@@ -976,6 +1057,8 @@ def main() -> int:
                                 decode_records=True), lambda out: out == data),
         "reader_records": (under(lambda: read.FrameDecoder(io.BytesIO(frame), engine="device")
                                  .read(), decode_records=True), lambda out: out == data),
+        "frame_replay": (under(lambda: snappy_tpu_torch.decompress_frame(frame),
+                               decode_flat=False), lambda out: out == data),
         "frame_hosted": (under(lambda: snappy_tpu_torch.decompress_frame(frame),
                                decode_kernels=False), lambda out: out == data),
         "frame_parallel": (under(lambda: snappy_tpu_torch.decompress_frame(frame),
@@ -1039,6 +1122,12 @@ def main() -> int:
         check(not any(c[k] for k in ("flat_gather[layout=0]", "flat_gather[layout=1]",
                                       "resolve_fh", "resolve") + encode_names),
               f"the {path} path ran another kernel: {c}")
+    # decode_flat=False: K3 takes every launch group, then K1 checks it.
+    c, rts = by_path["frame_replay"], group_routes["frame_replay"]
+    check(c["replay"] == len(groups) and c["crc32c"] == len(groups)
+          and not any(v for k, v in c.items() if k not in ("replay", "crc32c"))
+          and [r[2] for r in rts] == ["replay"] * len(groups),
+          f"K3 and K1 once a group on the frame_replay path: {c}, routes {rts}")
     ex, wr = by_path["exact"], by_path["writer"]
     check(ex["encode"] >= 1 and not any(v for k, v in ex.items() if k != "encode"),
           f"the exact compress path ran other kernels than K7: {ex}")
@@ -1087,8 +1176,8 @@ def main() -> int:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    timed_paths = ("frame", "frame_resolve", "frame_records", "frame_hosted", "frame_parallel",
-                   "compress", "exact", "writer")
+    timed_paths = ("frame", "frame_resolve", "frame_records", "frame_replay", "frame_hosted",
+                   "frame_parallel", "compress", "exact", "writer")
     for path in timed_paths:
         fn = runs[path][0]
         e2e = [timed(fn) for _ in range(3)]
@@ -1162,6 +1251,7 @@ def main() -> int:
         check(want_e is not None, f"the host engine decoded the stream with a bad {what}")
         for route, cfg in (("flat", {}), ("resolve", {"decode_resolve": True}),
                            ("records", {"decode_records": True}),
+                           ("replay", {"decode_flat": False}),
                            ("parallel_hosted", {"decode_kernels": False}),
                            ("parallel", {"pure_device": True})):
             got_e = None

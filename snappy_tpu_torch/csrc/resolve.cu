@@ -64,21 +64,28 @@
 // four waves) took 0.33 ms; resolve_parse_probe.py keeps it and times the
 // phases.
 //
-// K9: one CTA of 1024 threads per row, one thread per position of a
-// 1024-byte tile, sweeping the tiles left to right as the TPU kernel does.
-// Snappy pointers go strictly backward, so when tile t runs every position
-// before it is final: a pointer into an earlier tile is resolved by one read
-// of the row's plane in device memory. Pointers inside the tile jump Jacobi
-// style (each round replaces a pointer by its target's value, so the hops
-// covered double) over two 4 KiB buffers in shared memory, until
-// __syncthreads_and says every position is >= FLAG, for at most max_rounds
-// rounds (12: the TPU kernel's first round and 11 passes). Then the tile is
-// stored, and a __syncthreads() makes the stores visible to the CTA's later
-// reads of them; the plane is therefore read through plain loads, never the
-// read-only path (no const __restrict__ on it). A pointer below 0 or at or
-// past its own position is never chased, and a tile over the round budget
-// is stored as it stands, so such a row keeps values below FLAG and the
-// caller flags it for fallback.
+// K9 (rows of d_pad <= 65536, the plane of records_to_pointers): K8's CTA
+// and windows (256 threads, four CTAs an SM, 4,096 positions a window in
+// order), fed by the plane instead of records. A window's plane values are
+// copied into shared memory (cp.async) while the window before is worked.
+// Its first hops: a value >= FLAG is a root; a pointer below 0 reads
+// position 0, as the plain version's clipped gather does (position 0 itself
+// keeps such a value); a pointer at or past its own position is never
+// chased (a root keeping its value, below FLAG, so the row is flagged); a
+// pointer before the window takes the final value already stored there at
+// once. The rest double in place in shared memory (a uint16 window position
+// a pointer, roots pointing to themselves, their values beside them) until
+// every chain reaches its root (__syncthreads_or), for at most max_rounds
+// rounds (12 settle any chain of 4,096 positions; a chain still open after
+// a smaller budget keeps its window position, below FLAG); then the
+// window's values go out in 16-byte stores. So the plane equals the plain
+// version's (resolve_reference, Jacobi doubling over whole rows) on every
+// plane with no pointer past its own position; where the plain version
+// chases such a pointer, the row stays flagged here. The output plane is
+// read back through plain loads, never the read-only path (no const
+// __restrict__ on it): the CTA wrote it. The design this one replaced took
+// 1,024-position tiles strictly in turn, a thread a position and 12 Jacobi
+// rounds a tile; replay_resolve_probe.py keeps it.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -272,37 +279,108 @@ resolve_fh_kernel(const int32_t* __restrict__ startsx,
   }
 }
 
-// K9: resolves position d (thread threadIdx.x of the tile starting at t0)
-// from its first hop v and stores it in the row's plane.
-__device__ __forceinline__ void resolve_tile(int32_t v, int64_t d, int64_t t0,
-                                             int32_t* plane, int32_t* buf,
-                                             int max_rounds) {
-  int32_t* cur = buf;
-  int32_t* nxt = buf + kTile;
-  cur[threadIdx.x] = v;
-  int done = __syncthreads_and(v >= kFlag);
-  for (int r = 0; !done && r < max_rounds; ++r) {
-    if (v < kFlag && v >= 0 && v < d) v = v < t0 ? plane[v] : cur[v - t0];
-    nxt[threadIdx.x] = v;
-    done = __syncthreads_and(v >= kFlag);
-    int32_t* t = cur;
-    cur = nxt;
-    nxt = t;
-  }
-  plane[d] = v;
-  __syncthreads();
+// Copies 16 bytes from device memory to shared memory without the registers
+// (cp.async); cp.async.wait_all makes this thread's copies visible to it.
+__device__ __forceinline__ void copy16_async(void* to, const void* from) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(to));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(s), "l"(from) : "memory");
 }
 
-__global__ void __launch_bounds__(kTile)
-resolve_kernel(const int32_t* __restrict__ a0, int64_t d_pad, int max_rounds,
-               int32_t* out) {
-  __shared__ int32_t buf[2 * kTile];
+// K9: the plane's chains, a window of kWin positions at a time in order, with
+// K8's phases 3-4 (see the note at the top of the file).
+__global__ void __launch_bounds__(kThreads, kCtas)
+resolve_kernel(const int32_t* __restrict__ a0, int d_pad, int max_rounds, int32_t* out) {
+  // A window's plane values, copied in during the window before; each
+  // thread's own positions then hold their roots' values.
+  __shared__ __align__(16) int buf[2][kWin];
+  __shared__ uint16_t hop[kWin];      // a window position's pointer in the window, or itself
   const int64_t b = blockIdx.x;
-  const int32_t* row = a0 + b * d_pad;
-  int32_t* plane = out + b * d_pad;
-  for (int64_t t0 = 0; t0 < d_pad; t0 += kTile) {
-    const int64_t d = t0 + threadIdx.x;
-    resolve_tile(row[d], d, t0, plane, buf, max_rounds);
+  const int t = threadIdx.x;
+  const int32_t* a = a0 + b * static_cast<int64_t>(d_pad);
+  int32_t* row = out + b * static_cast<int64_t>(d_pad);
+  // A thread copies the four 4-position chunks of a window that it reads.
+  auto fetch = [&](int base, int* to) {
+    const int chunks = min(kWin, d_pad - base) / 4;
+#pragma unroll
+    for (int k = 0; k < kSteps / 4; ++k) {
+      const int c = t + k * kThreads;
+      if (c < chunks) copy16_async(to + 4 * c, a + base + 4 * c);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  fetch(0, buf[0]);
+  for (int base = 0, w = 0; base < d_pad; base += kWin, ++w) {
+    const int chunks = min(kWin, d_pad - base) / 4;  // 4-position chunks, 4 a thread
+    int* val = buf[w & 1];
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    if (base + kWin < d_pad) fetch(base + kWin, buf[(w + 1) & 1]);  // free since the last barrier
+    // 1: first hops. A value >= FLAG, a pointer at or past its position
+    // (never chased) and position 0's value below 0 are roots; a pointer
+    // below 0 reads position 0; a pointer before the window takes the final
+    // value stored there at once.
+    int e[kSteps], tgt[kSteps];
+#pragma unroll
+    for (int k = 0; k < kSteps / 4; ++k) {
+      const int c = t + k * kThreads;
+      const int4 v = c < chunks ? reinterpret_cast<const int4*>(val)[c] : make_int4(kFlag, kFlag, kFlag, kFlag);
+      const int vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int p = base + 4 * c + i;
+        e[4 * k + i] = vs[i];
+        tgt[4 * k + i] = vs[i] >= kFlag ? -1 : (vs[i] < 0 ? (p > 0 ? 0 : -1) : (vs[i] < p ? vs[i] : -1));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u)  // pointers before the window: their values
+      if (tgt[u] >= 0 && tgt[u] < base) e[u] = row[tgt[u]];
+    bool open[kSteps];
+    bool any = false;
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) {
+      const int q = 4 * (t + (u / 4) * kThreads) + u % 4;
+      open[u] = tgt[u] >= base;
+      if (q < 4 * chunks) {
+        hop[q] = static_cast<uint16_t>(open[u] ? tgt[u] - base : q);
+        val[q] = e[u];
+      }
+      tgt[u] = open[u] ? tgt[u] - base : q;
+      any |= open[u];
+    }
+    // 2: the window's chains by pointer doubling in place, hop[q] = hop[hop[q]],
+    // at most max_rounds rounds (12 settle any chain of a window).
+    for (int r = 0; r < max_rounds && __syncthreads_or(any); ++r) {
+      any = false;
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) {
+        if (!open[u]) continue;
+        const int h2 = hop[tgt[u]];
+        if (h2 == tgt[u]) {
+          open[u] = false;  // a root
+        } else {
+          tgt[u] = h2;
+          hop[4 * (t + (u / 4) * kThreads) + u % 4] = static_cast<uint16_t>(h2);
+          any = true;
+        }
+      }
+    }
+    __syncthreads();
+    // 3: each position's root value (a chain still open after the budget
+    // keeps its window position, below FLAG, unless it reached its root),
+    // 16 bytes a store.
+#pragma unroll
+    for (int k = 0; k < kSteps / 4; ++k) {
+      const int c = t + k * kThreads;
+      if (c >= chunks) continue;
+      int v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int h = tgt[4 * k + i];
+        v[i] = !open[4 * k + i] || hop[h] == h ? val[h] : base + h;
+      }
+      reinterpret_cast<int4*>(row + base)[c] = make_int4(v[0], v[1], v[2], v[3]);
+    }
+    __syncthreads();
   }
 }
 
@@ -322,9 +400,11 @@ extern "C" int stpu_cuda_resolve_fh(const int32_t* startsx, const int32_t* paylo
   return static_cast<int>(cudaGetLastError());
 }
 
+// a0, out: (n_rows, d_pad) int32, d_pad a multiple of 1024 up to 65536.
 extern "C" int stpu_cuda_resolve(const int32_t* a0, int64_t n_rows, int64_t d_pad,
                                  int max_rounds, int32_t* out, void* stream) {
-  resolve_kernel<<<static_cast<unsigned>(n_rows), kTile, 0,
-                   static_cast<cudaStream_t>(stream)>>>(a0, d_pad, max_rounds, out);
+  if (d_pad <= 0 || d_pad > kMaxRow || d_pad % kTile) return static_cast<int>(cudaErrorInvalidValue);
+  resolve_kernel<<<static_cast<unsigned>(n_rows), kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(a0, static_cast<int>(d_pad), max_rounds, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,7 +14,8 @@ card:
    builds the first hops itself from the records and doubles them window
    by window in shared memory (:func:`resolve_fh_windows` follows it), K9
    (:func:`resolve`) reads them from the plane :func:`records_to_pointers`
-   makes and doubles them tile by tile;
+   makes and doubles them in the same windows (:func:`resolve_windows`
+   follows it);
 3. :func:`idx_to_v2_inputs`: the resolved plane to the flat gather's inputs,
    the C++ flatten's window choice bit for bit, and K2 (``layout=1``) emits
    the bytes.
@@ -43,9 +44,10 @@ from .encode_flat import _no_span
 #: source indices fit 17 bits.
 FLAG = 1 << 17
 
-#: K9's gather rounds per 1024-byte tile after its first hops: the JAX
-#: package's one first round plus ``_MAX_PASSES`` (11). Jacobi doubling
-#: covers 2^12 hops by then, past the 1024 a tile can chain.
+#: K9's doubling rounds a window of 4,096 positions after its first hops:
+#: doubling covers 2^12 hops by then, past the 4,095 a window can chain
+#: (the JAX package's tile of 1,024 takes one first round and
+#: ``_MAX_PASSES``, 11).
 MAX_ROUNDS = 12
 
 #: Kernel launches since the counts were last reset, per kernel.
@@ -217,6 +219,47 @@ def resolve_fh_windows(startsx, payload, declens, d_pad: int, window: int = 4096
     return torch.where(live, val.gather(1, hop), FLAG).to(torch.int32), rounds
 
 
+def resolve_windows(a0, window: int = 4096, max_rounds: int = MAX_ROUNDS):
+    """K9's algorithm step by step in tensor ops (a model of the kernel, not
+    its plain version): window by window in order, each position's first
+    hop (a value ``>= FLAG``, position 0's value below 0 and a pointer at or
+    past its own position are roots, which keep their values; a pointer
+    below 0 reads position 0); a hop before the window takes the final value
+    stored there at once; the rest double inside the window, at most
+    ``max_rounds`` rounds, and each position takes its root's value (a
+    chain still open keeps its position, below ``FLAG``). Returns ``(plane,
+    rounds)``: the ``(B, d_pad)`` int32 plane, which equals
+    :func:`resolve_reference`'s on every plane with no pointer past its own
+    position, and the doubling rounds of each window, ``(B, ceil(d_pad /
+    window))`` int64, every round taken all at once (the kernel doubles in
+    place, which can only end sooner)."""
+    b, d_pad = a0.shape
+    dev = a0.device
+    a = a0.to(torch.int64)
+    p = torch.arange(d_pad, device=dev).expand(b, d_pad)
+    tgt = torch.where(a >= FLAG, -1,
+                      torch.where(a < 0, torch.where(p > 0, 0, -1), torch.where(a < p, a, -1)))
+    out = torch.empty_like(a)
+    rounds = torch.zeros((b, -(-d_pad // window)), dtype=torch.int64, device=dev)
+    for k, base in enumerate(range(0, d_pad, window)):
+        t = tgt[:, base : base + window]
+        q = p[:, : t.shape[1]]
+        val = torch.where((t >= 0) & (t < base), out.gather(1, t.clamp(min=0)),
+                          a[:, base : base + window])
+        open_ = t >= base
+        h = torch.where(open_, t - base, q)
+        for _ in range(max_rounds):
+            if not bool(open_.any()):
+                break
+            rounds[:, k] += open_.any(1).to(torch.int64)
+            h2 = h.gather(1, h)
+            root = h2 == h
+            h = torch.where(open_ & ~root, h2, h)
+            open_ = open_ & ~root
+        out[:, base : base + window] = torch.where(h.gather(1, h) == h, val.gather(1, h), base + h)
+    return out.to(torch.int32), rounds
+
+
 @functools.cache
 def _kernels():
     lib = _build.kernel_lib("resolve")
@@ -275,7 +318,11 @@ def resolve_fh(startsx, payload, declens, d_pad: int):
 def resolve(a0):
     """K9: resolve every pointer of the first-hop plane ``a0`` ``(B, d_pad)``
     int32 (from :func:`records_to_pointers`) to ``FLAG + src``. Its plain
-    version is :func:`resolve_reference`."""
+    version is :func:`resolve_reference`, whose plane the kernel gives on
+    every plane with no pointer past its own position (a pointer below 0
+    reads position 0); where the plain version chases a pointer past its
+    position, the kernel leaves it, below ``FLAG``, so the row stays
+    flagged (:func:`resolve_windows` follows the kernel)."""
     b, d_pad = a0.shape
     _check_plane_inputs((a0,), d_pad)
     if a0.device.type == "cpu":
@@ -285,6 +332,8 @@ def resolve(a0):
         return out
     if b > 65535:
         raise ValueError(f"{b} rows exceed one launch's grid")
+    if a0.data_ptr() % 16:
+        raise ValueError("a0 must start on a 16-byte boundary: the kernel copies it 16 bytes at a time")
     launches["resolve"] += 1
     _build.check(
         _kernels()[1](

@@ -18,12 +18,12 @@ from snappy_tpu_torch import native
 from snappy_tpu_torch.format import reference as ref
 from snappy_tpu_torch.format.varint import read_varu64, write_varu64
 from snappy_tpu_torch.ops import (
-    api, crc32c, decode, decode_flat, emit, encode, encode_flat, packing, parse, records,
+    _build, api, crc32c, decode, decode_flat, emit, encode, encode_flat, packing, parse, records,
     replay, resolve,
 )
 from torch_vectors import (
-    CORRUPT, collision_rows, fallback_row, literal, overlap_rows, raw_body, resolve_cases,
-    scan_batch, wide_stream,
+    CORRUPT, collision_rows, copy2, edge_rows, fallback_row, k9_planes, literal, overlap_rows,
+    random_ops, raw_body, resolve_cases, scan_batch, wide_stream,
 )
 
 pytestmark = pytest.mark.gpu
@@ -268,8 +268,8 @@ def test_replay_kernel_matches_plain(dev):
     rows = _replay_rows()
     declens = np.asarray([r[1] for r in rows], np.int32)
     d_pad = packing.pad_to_bucket(int(declens.max()), 1024)
-    # Rows of 128 KiB are staged in shared memory; rows of 256 KiB exceed
-    # one block's 227 KB and are read from device memory.
+    # At d_pad 65536 both widths take the CTA path, which stages a window
+    # of the source at a time; 256 KiB is wider than one block's 227 KB.
     for width in (1 << 17, 1 << 18):
         srcs, lens = packing.batch_streams([r[0] for r in rows], width)
         a = [torch.from_numpy(x).to(dev) for x in (srcs, lens, declens)]
@@ -279,6 +279,114 @@ def test_replay_kernel_matches_plain(dev):
     errs = got[1].cpu().numpy()
     n = len(CORRUPT)
     assert (errs[:n] > 0).all() and not errs[n:].any()
+
+
+def _replay_against_plain(dev, rows, d_pad, width=None):
+    srcs, lens = packing.batch_streams([r[0] for r in rows], width)
+    declens = np.asarray([r[1] for r in rows], np.int32)
+    a = [torch.from_numpy(x).to(dev) for x in (srcs, lens, declens)]
+    before = replay.launches
+    got = replay.decode_replay(*a, d_pad)
+    torch.cuda.synchronize()
+    assert replay.launches == before + 1
+    want = replay.decode_replay_plain(*a, d_pad)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    return got
+
+
+def test_replay_kernel_on_a_corpus_group(dev):
+    """455 corpus chunks of 64 KiB, the shape of the frame's largest launch
+    group (one CTA a row, four waves): the host codec's bytes, no error,
+    and the plain version's rows on the first 24."""
+    data = b"".join(load_corpus(n) for n in ("html", "lcet10.txt", "kppkn.gtb", "fireworks.jpeg",
+                                              "paper-100k.pdf", "plrabn12.txt", "urls.10K"))
+    data = (data * (-(-455 * 65536 // len(data))))[: 455 * 65536]
+    rows = [raw_body(data[i : i + 65536]) for i in range(0, len(data), 65536)]
+    srcs, lens = packing.batch_streams([r[0] for r in rows], None)
+    a = [torch.from_numpy(x).to(dev) for x in (srcs, lens, np.full(455, 65536, np.int32))]
+    dst, errs = replay.decode_replay(*a, 65536)
+    assert not errs.any()
+    assert dst.cpu().numpy().tobytes() == data
+    head = [x[:24] for x in a]
+    want = replay.decode_replay_plain(*head, 65536)
+    assert torch.equal(dst[:24], want[0]) and torch.equal(errs[:24], want[1])
+
+
+def test_replay_kernel_on_wide_rows(dev):
+    """``d_pad`` 131072: the row the flatten rejects, a wide stream and a
+    corpus chunk past 64 KiB among corrupt rows. At their own width the
+    source and the output row share one CTA's shared memory (the CTA
+    walk: long literals moved by the whole CTA in words); at 256 KiB they
+    do not (one warp a row)."""
+    rows = [fallback_row(), wide_stream(2), raw_body(load_corpus("html_x_4")[:120000])]
+    rows += [raw_body(b"ab" * 60000), (literal(bytes(range(256)) * 4) + copy2(1024, 64) * 100, 1024 + 6400)]
+    rows += list(CORRUPT[:4])
+    for width in (None, 1 << 18):
+        got = _replay_against_plain(dev, rows, 131072, width)
+    errs = got[1].cpu().numpy()
+    assert not errs[:5].any() and (errs[5:] > 0).all()
+    host = got[0].cpu().numpy()
+    for i, (body, n) in enumerate(rows[:5]):
+        assert host[i, :n].tobytes() == native.decompress(write_varu64(n) + body)
+
+
+def test_replay_kernel_on_corrupt_rows_among_valid_ones(dev):
+    """Corrupt vectors between corpus chunks, random op streams and rows
+    whose ops sit on the edges of the CTA path's source windows (a header
+    across an edge, a literal over several windows, an offset-1 run, a row
+    that turns bad in its third window, n = 0): the valid prefixes, the
+    zeros and the first bad op's code, row by row."""
+    valid = [raw_body(c) for c in CHUNKS[:4]] + [random_ops(s, 40000) for s in (7, 8)]
+    rows = [r for pair in zip(valid + valid[:4], CORRUPT) for r in pair] + edge_rows()
+    got = _replay_against_plain(dev, rows, 65536)
+    errs = got[1].cpu().numpy()
+    assert (errs[1 : 2 * len(CORRUPT) : 2] > 0).all() and not errs[0 : 2 * len(CORRUPT) : 2].any()
+
+
+@pytest.mark.parametrize("b", [1, 3, 7])
+def test_replay_kernel_on_small_batches(dev, b):
+    """Batches of 1, 3 and 7 rows, with padding rows (no bytes, declen 0)
+    among them, on the CTA path (d_pad 65536) and the CTA walk (131072)."""
+    pool = [raw_body(CHUNKS[0]), (b"", 0), CORRUPT[0], raw_body(b"xyz" * 999), (b"", 0),
+            random_ops(9, 5000), edge_rows()[2]]
+    for d_pad in (65536, 131072):
+        _replay_against_plain(dev, pool[:b], d_pad)
+
+
+def test_plane_resolution_kernel_on_crafted_planes(dev):
+    """K9 against its plain version on planes with pointers below 0 (read
+    at position 0), self pointers, a chain through the whole row and a
+    chain of 4,095 in every window; a pointer past its own position is
+    never chased, so its row stays flagged. Through the C entry with a
+    budget of 0 rounds, a row whose pointers all leave their window
+    resolves and a row with a pointer inside its window stays flagged. A
+    plane off a 16-byte boundary is refused."""
+    for d_pad in (8192, 20480, 65536):
+        a0 = k9_planes(d_pad, d_pad).to(dev)
+        before = resolve.launches["resolve"]
+        got = resolve.resolve(a0)
+        torch.cuda.synchronize()
+        assert resolve.launches["resolve"] == before + 1
+        assert torch.equal(got, resolve.resolve_reference(a0))
+        fwd = a0.clone()
+        fwd[0, 10] = 5000
+        got_f = resolve.resolve(fwd)
+        assert int(got_f[0, 10]) == 5000 and torch.equal(got_f[1:], got[1:])
+    p = torch.arange(65536, device=dev, dtype=torch.int32)
+    leaving = torch.where(p < 4096, resolve.FLAG + p, p - 4096)
+    inside = torch.where(p < 4096, resolve.FLAG + p, p - 1)
+    a0 = torch.stack([leaving, inside])
+    out = torch.empty_like(a0)
+    _build.check(resolve._kernels()[1](a0.data_ptr(), 2, 65536, 0, out.data_ptr(),
+                                       torch.cuda.current_stream().cuda_stream), "resolve")
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], resolve.resolve_reference(a0[:1])[0])
+    assert bool((out[1] < resolve.FLAG).any())
+    # The kernel copies the plane 16 bytes at a time: a plane that does not
+    # start on a 16-byte boundary is refused, not read.
+    shifted = torch.full((2 * 8192 + 1,), resolve.FLAG, dtype=torch.int32, device=dev)[1:].view(2, 8192)
+    with pytest.raises(ValueError, match="16-byte"):
+        resolve.resolve(shifted)
 
 
 def _encode_inputs(dev):

@@ -66,6 +66,22 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert [m for m in loaded if _foreign(m)] == []
 
 
+@pytest.mark.parametrize("script", ["chip_smoke.py", "flat_gather_probe.py", "encode_records_probe.py",
+                                    "resolve_parse_probe.py", "crc_emit_probe.py",
+                                    "replay_resolve_probe.py"])
+def test_card_scripts_import_no_jax_and_nothing_of_the_jax_package(script):
+    """The scripts that run on the card (where there is no JAX) import
+    neither JAX nor the JAX package, at any depth of their code."""
+    import ast
+
+    with open(os.path.join(REPO, script)) as f:
+        tree = ast.parse(f.read())
+    modules = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    modules += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    assert "snappy_tpu_torch" in {m.split(".")[0] for m in modules}
+    assert [m for m in modules if _foreign(m)] == []
+
+
 @pytest.mark.parametrize("entry", ["decompress", "decompress_frame", "compress"])
 def test_default_device_without_a_card_raises(entry, monkeypatch):
     import snappy_tpu_torch

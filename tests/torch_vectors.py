@@ -189,3 +189,94 @@ def collision_rows() -> dict[str, list[bytes]]:
         "edges": [rng.integers(0, 4, 16, dtype=np.uint8).tobytes(), b"abcd" * 4 + b"a",
                   b"", rng.integers(0, 8, 2048, dtype=np.uint8).tobytes()],
     }
+
+
+def _corpus(name: str) -> bytes:
+    return (REPO / "data" / name).read_bytes()
+
+
+def copy1(offset: int, length: int) -> bytes:
+    """A 2-byte copy: length 4-11, offset below 2048."""
+    return bytes([(offset >> 8) << 5 | (length - 4) << 2 | 1, offset & 0xFF])
+
+
+def copy4(offset: int, length: int) -> bytes:
+    return bytes([(length - 1) << 2 | 3]) + offset.to_bytes(4, "little")
+
+
+def random_ops(seed: int, declen: int) -> tuple[bytes, int]:
+    """A valid stream of random ops of every kind (literals with 0-2 length
+    bytes, copies with 1, 2 and 4 offset bytes, overlapping or not), so
+    that headers fall on every phase of a window's end."""
+    rng = np.random.default_rng(seed)
+    body, d = b"", 0
+    while d < declen:
+        k = rng.integers(0, 5) if d else 0
+        left = declen - d
+        if k == 0:
+            n = int(min(left, rng.choice([rng.integers(1, 61), rng.integers(61, 300)])))
+            payload = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+            body += (bytes([(n - 1) << 2]) + payload) if n <= 60 else literal(payload)
+        elif k == 1 and left >= 4:
+            n = int(rng.integers(4, min(11, left) + 1))
+            body += copy1(int(rng.integers(1, min(d, 2047) + 1)), n)
+        elif k in (2, 3) and left >= 1:
+            n = int(rng.integers(1, min(64, left) + 1))
+            off = int(rng.integers(1, min(d, 65535) + 1))
+            body += copy2(off, n) if k == 2 else copy4(off, n)
+        else:
+            n = 1
+            body += bytes([0]) + bytes([int(rng.integers(0, 256))])
+        d += n
+    return body, declen
+
+
+def edge_rows() -> list[tuple[bytes, int]]:
+    """Rows whose ops sit on a window's edges at the kernel's window."""
+    rng = np.random.default_rng(5)
+    # A literal of 4,091 bytes (header 3) puts the next op at 4,094: a
+    # copy-2 header across the first window's end, then a copy-4.
+    straddle = literal(rng.integers(0, 256, 4091, dtype=np.uint8).tobytes())
+    straddle += copy2(100, 64) + copy4(4000, 40) + bytes([3 << 2]) + b"wxyz"
+    straddle_decl = 4091 + 64 + 40 + 4
+    # A literal longer than two windows, then copies reaching back into it.
+    long_lit = rng.integers(0, 256, 10000, dtype=np.uint8).tobytes()
+    multi = literal(long_lit) + copy2(9000, 64) * 30 + copy1(1, 11)
+    # An offset-1 run of 2-byte ops across three windows.
+    run = bytes([0]) + b"a" + copy1(1, 11) * 5000
+    return [
+        (straddle, straddle_decl),
+        (multi, 10000 + 64 * 30 + 11),
+        (run, 1 + 11 * 5000),
+        (b"", 0),                                   # n = 0, clean
+        (b"", 5),                                   # n = 0, short of declen
+        raw_body(_corpus("alice29.txt")[:65536]),   # declen exactly 65536
+        raw_body(bytes(65536)),
+        # a run that turns bad in its third window: offset past the output
+        (bytes([0]) + b"a" + copy1(1, 11) * 4500 + copy2(60000, 5), 1 + 11 * 4500 + 5),
+    ]
+
+
+def k9_planes(d_pad: int, seed: int):
+    """First-hop planes: random backward pointers and roots, a chain through
+    the whole row, pointers below 0 (read at position 0, itself a root or
+    below 0), self pointers, and position 0 pointing to itself."""
+    import torch
+
+    from snappy_tpu_torch.ops.resolve import FLAG
+
+    rng = np.random.default_rng(seed)
+    p = np.arange(d_pad)
+    a = np.where(rng.random((7, d_pad)) < 0.2, FLAG + rng.integers(0, 5000, (7, d_pad)),
+                 (p[None] * rng.random((7, d_pad))).astype(np.int64))
+    a[:, 0] = FLAG + 3
+    a[1] = p - 1
+    a[1, 0] = FLAG + 9                         # one chain through the row
+    a[2, 100:300] = -7                         # below 0: position 0's value
+    a[3, 0] = -2
+    a[3, 4000:4200] = -1                       # ... which is itself below 0
+    a[4, 5000] = 5000
+    a[4, 5001:5100] = 5000                     # a self pointer and its chain
+    a[5, 0] = 0                                # position 0 points to itself
+    a[6] = np.where(p % 4096 == 0, FLAG + p, p - 1)  # a chain of 4,095 in each window
+    return torch.tensor(a, dtype=torch.int32)
