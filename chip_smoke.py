@@ -107,6 +107,32 @@ device-only too (its wrapper's calls in a graph), beside ``call_ms``, and
 its walk followed in numpy (``emit.fused_emit_walk``) must give the plain
 version's indices on the compress group's first 16 rows.
 
+The port's ``parallel/`` and ``utils/`` run on the card too. The sharded
+entries (``parallel.sharded``) run on meshes ``[cuda:0]`` and ``[cuda:0,
+cuda:0]``: exact compress (K7) and flat compress (K4, K5) of the stream's
+blocks, which must assemble the unsharded calls' streams; the frame
+chunks' bodies decoded from the host flatten (K2), by replay (K3) and by
+chain resolution (K8, K2), each row the host codec's; the blocks framed
+as chunks (K1, K7), which must be the host codec's frames. Each path
+launches exactly its kernels (counts set to 0 before it, read after), a
+mesh of two gives the one-device mesh's rows, and one ``{"sharded": ...}``
+line prints each path's cold and warm seconds and GB/s. ``multihost``
+then joins a world of one rank from the environment (``MASTER_ADDR``,
+``RANK=0``, ``WORLD_SIZE=1``), where ``initialize`` must choose NCCL:
+``compress_segments`` on the 1,024 whole blocks (K7) gives rows whose
+stream, each at its offset, is the host codec's, and ``decode_segments``
+the frame chunks' rows (the hosted tensor decode, no kernel); the group
+is destroyed after. Two worker processes (``python -c``, the port alone,
+gloo, both on ``cuda:0``) each compress 512 of the blocks with K7 and
+write their rows at their offsets into one file, which must be the host
+codec's stream. One warm ``decompress_frame`` runs under
+``utils.profiling.device_trace`` (written to ``chiprun_out/trace/``): the
+trace must hold device events of K2 and K1, and the run prints the device
+busy share of the traced window, the 10 longest device operations and the
+5 longest gaps between them with the host ops and the API's labelled
+spans in each. Whether ``ncu`` is on the path, and its ``--version``, go
+to the report.
+
 It prints one ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Details go to
 ``chiprun_out/chip_smoke.json``.
@@ -282,6 +308,378 @@ def small_replay_rows():
         body += bytes([(63 << 2) | 2, off & 0xFF, off >> 8]) * 20
         rows.append((body, off + 64 * 20))
     return rows
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def warm_runs(fn, reps: int = 3) -> list[float]:
+    """Seconds of ``reps`` calls of ``fn``, each ending in a synchronize."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def assemble(rows: torch.Tensor, lens: torch.Tensor, n: int) -> bytes:
+    """The first ``n`` rows' prefixes of their lengths, concatenated."""
+    rows, lens = rows[:n].cpu().numpy(), lens[:n].cpu().numpy()
+    return b"".join(rows[i, : lens[i]].tobytes() for i in range(n))
+
+
+def rows_equal(dst: torch.Tensor, want: list[bytes]) -> bool:
+    """Each of the first ``len(want)`` rows of ``dst`` starts with its bytes."""
+    d = dst[: len(want)].cpu().numpy()
+    return all(d[i, : len(w)].tobytes() == w for i, w in enumerate(want))
+
+
+def counts() -> dict:
+    """Every kernel wrapper's launch count, by kernel."""
+    from snappy_tpu_torch.ops import (
+        crc32c, decode_flat, emit, encode, parse, records, replay, resolve,
+    )
+
+    return {"crc32c": crc32c.launches, "replay": replay.launches,
+            "flat_gather[layout=0]": decode_flat.layout_launches[0],
+            "flat_gather[layout=1]": decode_flat.layout_launches[1],
+            "flat_grouped[v3]": decode_flat.grouped_launches[3],
+            "flat_grouped[v4]": decode_flat.grouped_launches[4],
+            "parse": parse.launches, "encode": encode.launches, **emit.entry_launches,
+            **resolve.launches, "records": records.launches}
+
+
+def reset_counts() -> None:
+    from snappy_tpu_torch.ops import (
+        crc32c, decode_flat, emit, encode, parse, records, replay, resolve,
+    )
+
+    for m in (crc32c, decode_flat, replay, parse, encode, records):
+        m.launches = 0
+    decode_flat.layout_launches[:] = [0, 0]
+    for d in (emit.entry_launches, resolve.launches, decode_flat.grouped_launches):
+        for k in d:
+            d[k] = 0
+
+
+def counted_run(by_path: dict, path: str, fn, want: dict):
+    """``fn()`` with every launch count set to 0 just before it and kept in
+    ``by_path[path]`` just after; fails unless it launched exactly the
+    kernels and counts of ``want``. Returns its result and seconds."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    by_path[path] = counts()
+    launched = {k: v for k, v in by_path[path].items() if v}
+    check(launched == want, f"the {path} path launched {launched}, not {want}")
+    return result, seconds
+
+
+def sharded_paths(meshes, data, cblocks, clens, dec, want_rows, expect, run_counted):
+    """The sharded entries on each mesh of ``meshes`` (lists of devices, the
+    first of one device): exact and flat compress of the stream's blocks,
+    the frame chunks' bodies decoded by the flat gather from the host
+    flatten, by the replay kernel and by chain resolution, and the blocks
+    framed as chunks. Each
+    path's output equals the unsharded port call's (``expect``: the exact
+    and fast streams and the frame), each decode the host codec's rows, and
+    a wider mesh gives the first mesh's rows.
+    ``run_counted(path, fn, kernels)`` runs a path with the counts reset
+    and checks its launches. Returns each path's times."""
+    from snappy_tpu_torch.format.varint import write_varu64
+    from snappy_tpu_torch.parallel import make_mesh, sharded
+
+    srcs, src_lens, declens, recs, nops = dec
+    n_blocks, n_rows = len(clens), len(declens)
+    out_bytes = int(np.asarray(declens, np.int64).sum())
+    times, firsts = {}, {}
+    for devices in meshes:
+        mesh = make_mesh(devices)
+        m = mesh.size
+
+        def padded(x):
+            return sharded.pad_batch(np.asarray(x), np.zeros(len(x), np.int32), m)[0]
+
+        home = mesh.devices[0]
+        blocks_t, lens_t = (torch.from_numpy(padded(x)).to(home) for x in (cblocks, clens))
+        srcs_p, recs_p, s_lens, d_lens, n_ops = map(padded, (srcs, recs, src_lens, declens, nops))
+        srcs_t = torch.from_numpy(srcs_p).to(home)
+        paths = {
+            "compress": (
+                lambda: sharded.sharded_compress_blocks(mesh, blocks_t, lens_t),
+                {"encode": m}, len(data),
+                lambda r: write_varu64(len(data)) + assemble(*r, n_blocks) == expect["exact"]),
+            "compress_flat": (
+                lambda: sharded.sharded_compress_blocks_flat(mesh, blocks_t, lens_t),
+                {"parse": m, "fused_emit": m}, len(data),
+                lambda r: not r[2][:n_blocks].any()
+                and write_varu64(len(data)) + assemble(r[0], r[1], n_blocks) == expect["fast"]),
+            "frame_chunks": (
+                lambda: sharded.sharded_encode_frame_chunks(mesh, blocks_t, lens_t),
+                {"crc32c": m, "encode": m}, len(data),
+                lambda r: b"\xff\x06\x00\x00sNaPpY" + assemble(*r, n_blocks) == expect["frame"]),
+            "decode_flat_host": (
+                lambda: sharded.sharded_decode_flat_host(mesh, srcs_p, s_lens, d_lens, 65536),
+                {"flat_gather[layout=1]": m}, out_bytes,
+                lambda r: not r[1][:n_rows].any() and not r[2][:n_rows].any()
+                and rows_equal(r[0], want_rows)),
+            "decode_replay": (
+                lambda: sharded.sharded_decode_streams_replay(mesh, srcs_t, s_lens, d_lens, 65536),
+                {"replay": m}, out_bytes,
+                lambda r: not r[1][:n_rows].any() and rows_equal(r[0], want_rows)),
+            "decode_resolve": (
+                lambda: sharded.sharded_decode_resolve(mesh, srcs_t, recs_p, n_ops, d_lens, 65536),
+                {"resolve_fh": m, "flat_gather[layout=1]": m}, out_bytes,
+                lambda r: not r[1][:n_rows].any() and rows_equal(r[0], want_rows)),
+        }
+        for name, (fn, kernels, nbytes, ok) in paths.items():
+            path = f"sharded_{name}[{m}]"
+            result, cold = run_counted(path, fn, kernels)
+            check(ok(result), f"the {path} path's output differs from the unsharded call's")
+            if name not in firsts:
+                firsts[name] = result[0]
+            else:  # a wider mesh gives the first mesh's rows, byte for byte
+                k = min(len(result[0]), len(firsts[name]))
+                check(torch.equal(result[0][:k], firsts[name][:k]),
+                      f"the {path} path's rows differ from the one-device mesh's")
+            del result
+            warm = warm_runs(fn)
+            times[path] = {"cold_s": cold, "warm_s": warm,
+                           "warm_GBps": [nbytes / t / 1e9 for t in warm], "bytes": nbytes}
+        del blocks_t, lens_t, srcs_t
+    return times
+
+
+def nccl_world_of_one(dev, cblocks, clens, host_64mib, dec, want_rows, run_counted):
+    """``multihost`` in a world of one rank on the card: ``initialize`` from
+    the environment must choose NCCL; ``compress_segments`` on the 1,024
+    whole blocks gives offsets whose stream is the host codec's, and
+    ``decode_segments`` on the frame chunks' bodies the host codec's rows.
+    The process group is destroyed and the environment restored after."""
+    import torch.distributed as dist
+
+    from snappy_tpu_torch.format.varint import write_varu64
+    from snappy_tpu_torch.parallel import multihost
+
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()), "RANK": "0",
+           "WORLD_SIZE": "1", "LOCAL_RANK": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        multihost.initialize()
+        out["init_s"] = time.perf_counter() - t0
+        out["backend"] = dist.get_backend()
+        check(out["backend"] == "nccl", f"multihost.initialize chose {out['backend']} on the card")
+        mesh = multihost.global_mesh()
+        check(mesh.devices == (dev,) and (mesh.rank, mesh.world_size) == (0, 1),
+              f"the global mesh of a world of one: {mesh}")
+        seg, out["compress_segments_s"] = run_counted(
+            "nccl_compress_segments",
+            lambda: multihost.compress_segments(mesh, cblocks[:1024], clens[:1024]), {"encode": 1})
+        stream = bytearray(seg.total)
+        for i in range(len(seg.row_lens)):
+            o = int(seg.offsets[i])
+            stream[o : o + int(seg.row_lens[i])] = seg.rows[i, : seg.row_lens[i]].tobytes()
+        check(write_varu64(int(clens[:1024].sum())) + bytes(stream) == host_64mib,
+              "compress_segments' rows at their offsets differ from the host codec's stream")
+        srcs, src_lens, declens = dec[:3]
+        (dst, errs), out["decode_segments_s"] = run_counted(
+            "nccl_decode_segments",
+            lambda: multihost.decode_segments(mesh, srcs, src_lens, declens, d_pad=65536), {})
+        check(not errs.any() and all(dst[i, : len(w)].tobytes() == w for i, w in enumerate(want_rows)),
+              "decode_segments differs from the host codec's rows")
+        out["blocks"], out["decoded_rows"] = len(clens[:1024]), len(want_rows)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return out
+
+
+RANK_WORKER = """
+import json, os, sys, time
+t0 = time.perf_counter()
+import numpy as np, torch
+import torch.distributed as dist
+from snappy_tpu_torch.ops import crc32c, decode_flat, emit, encode, packing, parse, records, replay, resolve
+from snappy_tpu_torch.parallel import multihost
+multihost.initialize(backend="gloo")   # two ranks share one card: NCCL refuses that
+mesh = multihost.global_mesh()
+work = sys.argv[1]
+per_rank = int(sys.argv[2])
+with open(os.path.join(work, "data.bin"), "rb") as f:
+    blocks, lens = packing.blocks_of(f.read())
+mine = slice(mesh.rank * per_rank, (mesh.rank + 1) * per_rank)
+t1 = time.perf_counter()
+seg = multihost.compress_segments(mesh, blocks[mine], lens[mine])
+t2 = time.perf_counter()
+with open(os.path.join(work, "stream.bin"), "r+b") as f:   # this rank's rows at its offsets
+    for i in range(per_rank):
+        f.seek(int(seg.offsets[i]))
+        f.write(seg.rows[i, : seg.row_lens[i]].tobytes())
+other = (crc32c.launches + replay.launches + sum(decode_flat.layout_launches)
+         + sum(decode_flat.grouped_launches.values()) + parse.launches + records.launches
+         + sum(emit.entry_launches.values()) + sum(resolve.launches.values()))
+print(json.dumps({"rank": mesh.rank, "device": str(mesh.devices[0]), "backend": dist.get_backend(),
+                  "encode_launches": encode.launches, "other_launches": other, "total": seg.total,
+                  "start_s": t1 - t0, "compress_segments_s": t2 - t1}))
+dist.destroy_process_group()
+"""
+
+
+def two_ranks_on_one_card(dev, data: bytes, host_stream: bytes, per_rank: int):
+    """Two worker processes (``python -c``, the port alone), gloo, both on
+    ``dev``: each compresses ``per_rank`` blocks with K7 and writes its
+    rows at its offsets into one file, which must be the host codec's
+    stream of ``2 * per_rank`` blocks. Returns the phase's record (each
+    worker's launch counts among it)."""
+    from snappy_tpu_torch.format.varint import write_varu64
+
+    work = os.path.join(HERE, "build", "chip_smoke_ranks")
+    subprocess.run(["rm", "-rf", work], check=True)
+    os.makedirs(work)
+    n = 2 * per_rank * 65536
+    with open(os.path.join(work, "data.bin"), "wb") as f:
+        f.write(data[:n])
+    with open(os.path.join(work, "stream.bin"), "wb") as f:
+        f.truncate(2 * n)
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", RANK_WORKER, work, str(per_rank)],
+        env={**os.environ, "PYTHONPATH": HERE, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+             "WORLD_SIZE": "2", "RANK": str(r), "LOCAL_RANK": str(r)},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    seconds = time.perf_counter() - t0
+    for p, (o, e) in zip(procs, outs):
+        check(p.returncode == 0, f"a rank worker failed: {e[-3000:]}")
+    ranks = [json.loads(o.strip().splitlines()[-1]) for o, _ in outs]
+    check(all(r["device"] == str(dev) and r["backend"] == "gloo" and r["encode_launches"] == 1
+              and r["other_launches"] == 0 for r in ranks),
+          f"the rank workers' devices, backend or launches: {ranks}")
+    total = ranks[0]["total"]
+    with open(os.path.join(work, "stream.bin"), "rb") as f:
+        stream = f.read(total)
+    check(write_varu64(n) + stream == host_stream,
+          "the two ranks' rows at their offsets differ from the host codec's stream")
+    subprocess.run(["rm", "-rf", work], check=True)
+    return {"blocks_per_rank": per_rank, "seconds": seconds, "ranks": ranks}
+
+
+def trace_flat_route(fn, out_dir: str):
+    """``fn`` (one warm call of the flat route) under
+    ``utils.profiling.device_trace``, written to ``out_dir``. Returns the
+    device busy share within the traced window, the 10 longest device
+    operations and the 5 longest gaps between device operations with the
+    host op that spans each (the innermost host op over the whole gap, if
+    any, the time of each of the API's labelled spans within it, and the
+    host ops around it), with the kernels' own busy share and each labelled
+    span's time in the window. Fails if the trace holds
+    no device event of K2 or K1."""
+    import glob
+
+    from snappy_tpu_torch.utils.profiling import device_trace
+
+    subprocess.run(["rm", "-rf", out_dir], check=True)
+    with device_trace(out_dir):
+        result = fn()
+    (path,) = glob.glob(os.path.join(out_dir, "trace.*.json"))
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+    on_dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    host_ops = [e for e in events if e.get("cat") in ("cpu_op", "user_annotation")]
+    names = [e["name"] for e in on_dev if e.get("cat") == "kernel"]
+    labelled = {}  # the API's spans, which ops.api labels in a trace
+    for e in events:
+        if e.get("cat") == "user_annotation":
+            labelled[e["name"]] = labelled.get(e["name"], 0.0) + e["dur"]
+    check(any("flat_kernel" in n for n in names) and any("crc32c_rows_kernel" in n for n in names),
+          f"the trace holds no device event of K2 or K1 (kernels: {sorted(set(names))[:10]})")
+    lo = min(e["ts"] for e in events)
+    hi = max(e["ts"] + e["dur"] for e in events)
+
+    def union(evs):
+        spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in evs)
+        merged = [list(spans[0])]
+        for a, b in spans[1:]:
+            if a <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], b)
+            else:
+                merged.append([a, b])
+        return merged
+
+    merged = union(on_dev)
+    busy = sum(b - a for a, b in merged)
+    kernel_busy = sum(b - a for a, b in union([e for e in on_dev if e.get("cat") == "kernel"]))
+    by_name = {}
+    for e in on_dev:
+        t, c = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (t + e["dur"], c + 1)
+    longest = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    gaps = sorted(((b0, a1) for (_, b0), (a1, _) in zip(merged, merged[1:])), key=lambda g: g[0] - g[1])
+
+    def around(g0, g1):
+        over = [e for e in host_ops if e["ts"] <= g0 and e["ts"] + e["dur"] >= g1]
+        before = [e for e in host_ops if e["ts"] + e["dur"] <= g0]
+        after = [e for e in host_ops if e["ts"] >= g1]
+        inside = {}  # each labelled span's time within the gap
+        for e in host_ops:
+            t = min(g1, e["ts"] + e["dur"]) - max(g0, e["ts"])
+            if e.get("cat") == "user_annotation" and t > 0:
+                inside[e["name"]] = inside.get(e["name"], 0.0) + t
+        return {
+            "gap_us": g1 - g0, "labelled_us": inside,
+            "spanning_host_op": min(over, key=lambda e: e["dur"])["name"] if over else None,
+            "last_host_op_before": max(before, key=lambda e: e["ts"] + e["dur"])["name"] if before else None,
+            "first_host_op_after": min(after, key=lambda e: e["ts"])["name"] if after else None,
+        }
+
+    return result, {
+        "trace": os.path.relpath(path, HERE), "window_us": hi - lo, "device_busy_us": busy,
+        "device_busy_share": busy / (hi - lo), "device_events": len(on_dev),
+        "kernel_busy_us": kernel_busy, "kernel_busy_share": kernel_busy / (hi - lo),
+        "kernel_launches": len(names), "labelled_host_us": labelled,
+        "longest_device_ops": [{"name": n[:120], "total_us": t, "count": c} for n, (t, c) in longest],
+        "longest_gaps": [around(g0, g1) for g0, g1 in gaps[:5]],
+    }
+
+
+def ncu_record() -> dict:
+    """Whether Nsight Compute's ``ncu`` is on the path (or in the toolkit),
+    and what its ``--version`` says. Records only: the run does not depend
+    on it."""
+    import shutil
+
+    on_path = shutil.which("ncu")
+    found = on_path or next((p for p in ("/usr/local/cuda/bin/ncu",) if os.path.exists(p)), None)
+    out = {"on_path": on_path, "found": found, "version": None}
+    if not found:
+        return out
+    r = subprocess.run([found, "--version"], capture_output=True, text=True, timeout=60)
+    out.update(version=(r.stdout + r.stderr).strip()[-2000:], returncode=r.returncode)
+    return out
 
 
 def main() -> int:
@@ -983,23 +1381,6 @@ def main() -> int:
     # just after: the frame stream takes K2 (both layouts) and K1, the
     # flatten-rejected raw stream takes K3, the compress takes K4 and K5, and
     # none takes another's.
-    def counts():
-        return {"crc32c": crc32c.launches, "replay": replay.launches,
-                "flat_gather[layout=0]": decode_flat.layout_launches[0],
-                "flat_gather[layout=1]": decode_flat.layout_launches[1],
-                "flat_grouped[v3]": decode_flat.grouped_launches[3],
-                "flat_grouped[v4]": decode_flat.grouped_launches[4],
-                "parse": parse.launches, "encode": encode.launches, **emit.entry_launches,
-                **resolve.launches, "records": records.launches}
-
-    def reset_counts():
-        for m in (crc32c, decode_flat, replay, parse, encode, records):
-            m.launches = 0
-        decode_flat.layout_launches[:] = [0, 0]
-        for d in (emit.entry_launches, resolve.launches, decode_flat.grouped_launches):
-            for k in d:
-                d[k] = 0
-
     def under(fn, **cfg):
         def run():
             with snappy_tpu_torch.configure(**cfg):
@@ -1139,6 +1520,51 @@ def main() -> int:
     check(cp["parse"] >= 1 and cp["fused_emit"] >= 1, f"K4 or K5 did not run on the compress path: {cp}")
     check(not any(v for k, v in cp.items() if k not in ("parse", "fused_emit")),
           f"the compress path ran another kernel: {cp}")
+    # -- the sharded entries; multihost under NCCL; two ranks on one card ------------
+    # Each path runs with every count set to 0 just before it and read just
+    # after, and must launch exactly its kernels: the sharded compresses K7,
+    # or K4 and K5; the frame chunks K1 and K7; the decodes K2 (layout 1),
+    # K3, or K8 and K2; compress_segments K7; decode_segments none (the
+    # tensor decode from the host's op-start bitmaps).
+    def run_counted(path, fn, want):
+        return counted_run(by_path, path, fn, want)
+
+    card0 = torch.device("cuda", 0)
+    dec_srcs, dec_lens = packing.batch_streams(bodies, 65536)
+    dec_declens = np.asarray([c[1] for c in chunks], np.int32)
+    cap = api._record_cap(65536)
+    recs, nops, herrs, _ = native.scan_records_batch(
+        dec_srcs, dec_lens.astype(np.uint64), dec_declens.astype(np.uint64), cap)
+    check(not herrs.any() and int(nops.max()) <= cap, "the record scan of the frame's chunks")
+    r_pad = max(512, -(-int(nops.max()) // 512) * 512)
+    dec = (dec_srcs, dec_lens, dec_declens, np.ascontiguousarray(recs[:, :r_pad]), nops)
+    del recs
+    want_rows = native.decompress_batch([write_varu64(d) + b for b, d, _ in chunks])
+    sharded_s = sharded_paths(
+        [[card0], [card0, card0]], data, cblocks, clens, dec, want_rows,
+        {"exact": results["exact"], "fast": results["compress"], "frame": results["writer"]},
+        run_counted)
+    report["sharded"] = sharded_s
+    print(json.dumps({"sharded": sharded_s}))
+    host_64mib = native.compress(data[: 1024 * 65536])
+    report["nccl_world_of_one"] = nccl_world_of_one(
+        card0, cblocks, clens, host_64mib, dec, want_rows, run_counted)
+    print(f"multihost, NCCL in a world of one: {report['nccl_world_of_one']}")
+    del dec, want_rows
+    report["two_ranks_one_card"] = two_ranks_on_one_card(card0, data, host_64mib, 512)
+    by_path["two_ranks"] = {**{k: 0 for k in counts()}, "encode": sum(
+        r["encode_launches"] for r in report["two_ranks_one_card"]["ranks"])}
+    print(f"two gloo ranks on cuda:0, 512 blocks each with K7, rows at their offsets equal to "
+          f"the host codec's stream: {report['two_ranks_one_card']}")
+
+    # -- a torch.profiler trace of one warm call of the flat route -------------------
+    traced, report["flat_trace"] = trace_flat_route(
+        lambda: snappy_tpu_torch.decompress_frame(frame), os.path.join(HERE, "chiprun_out", "trace"))
+    check(traced == data, "the traced flat route's output differs from the input")
+    print(f"flat route trace: {json.dumps(report['flat_trace'])}")
+    report["ncu"] = ncu_record()
+    print(f"ncu: {report['ncu']}")
+
     for k in kernels:
         k["launches_by_path"] = {path: c[k["name"]] for path, c in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())

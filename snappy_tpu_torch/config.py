@@ -5,10 +5,13 @@ TPU (``pallas_max_dpad``, ``pallas_fastpath``...), so the port keeps its
 own. Library code reads :func:`get_config` at each decision point.
 Precedence, highest first:
 
-1. temporary overrides via :func:`configure` (a ContextVar overlay, safe
+1. the JAX package's ``SNAPPY_TPU_*`` environment variables (deployment
+   overrides; :data:`_ENV_KNOBS`), read at every call, so one setting
+   steers both packages;
+2. temporary overrides via :func:`configure` (a ContextVar overlay, safe
    under threads and asyncio);
-2. the process-wide base set by :func:`set_config`;
-3. the dataclass defaults below.
+3. the process-wide base set by :func:`set_config`;
+4. the dataclass defaults below.
 
 Example::
 
@@ -23,6 +26,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import os
 from dataclasses import dataclass, fields, replace
 
 __all__ = [
@@ -161,14 +165,73 @@ _base_var: contextvars.ContextVar[Config | None] = contextvars.ContextVar(
 )
 
 
-def get_config() -> Config:
-    """The effective configuration."""
+def _onoff(v: str) -> bool:
+    """'' and '0' are off; anything else is on (the JAX package's knob
+    semantics, where setting the variable at all usually means on)."""
+    return v not in ("", "0")
+
+
+def _truthy(v: str) -> bool:
+    return bool(v)
+
+
+def _int_or_none(v: str):
+    try:
+        return int(v)
+    except ValueError:
+        return None  # ignore malformed values, keep the base setting
+
+
+#: The JAX package's environment variables: name -> (JAX ``Config`` field,
+#: parser), as in ``snappy_tpu/config.py``. Each sets the port's field
+#: that :data:`_REFERENCE_FIELDS` pairs with the JAX field. A parser
+#: returning None leaves the base value in place.
+_ENV_KNOBS = {
+    "SNAPPY_TPU_ENGINE": ("engine", lambda v: v or None),
+    "SNAPPY_TPU_PALLAS_DECODE": ("pallas_decode", _onoff),
+    "SNAPPY_TPU_PALLAS_FLAT": ("pallas_flat", _onoff),
+    "SNAPPY_TPU_PALLAS_RECORDS": ("pallas_records", lambda v: v == "1"),
+    "SNAPPY_TPU_PALLAS_RESOLVE": ("pallas_resolve", lambda v: v == "1"),
+    "SNAPPY_TPU_FLAT_ENCODE": ("flat_encode", _onoff),
+    "SNAPPY_TPU_PURE_DEVICE": ("pure_device", _truthy),
+    "SNAPPY_TPU_DEBUG": ("debug", _truthy),
+    "SNAPPY_TPU_THREADS": ("threads", _int_or_none),
+}
+
+#: The JAX package's variables that the port reads and ignores: they select
+#: TPU move machinery (``pallas_fastpath``, ``pallas_compose``) or the
+#: choice between the Pallas and the XLA exact encoder (``pallas_encode``),
+#: none of which changes a byte and none of which the port has.
+_IGNORED_ENV = (
+    "SNAPPY_TPU_PALLAS_ENCODE",
+    "SNAPPY_TPU_PALLAS_FASTPATH",
+    "SNAPPY_TPU_PALLAS_COMPOSE",
+)
+
+
+def _current_base() -> Config:
     ctx = _base_var.get()
     return ctx if ctx is not None else _base_default
 
 
+def get_config() -> Config:
+    """The effective configuration: the environment's overrides applied to
+    the base."""
+    updates = {}
+    for var, (theirs, parse) in _ENV_KNOBS.items():
+        raw = os.environ.get(var)
+        if raw is None:
+            continue
+        val = parse(raw)
+        if val is not None:
+            updates[_REFERENCE_FIELDS[theirs]] = val
+    cfg = _current_base()
+    return replace(cfg, **updates) if updates else cfg
+
+
 def set_config(cfg: Config | None = None, **overrides) -> Config:
-    """Set the process-wide base configuration.
+    """Set the process-wide base configuration (below the environment's
+    overrides).
 
     Pass a full :class:`Config`, or field overrides applied to the
     current base. Returns the new base.
@@ -182,7 +245,8 @@ def set_config(cfg: Config | None = None, **overrides) -> Config:
 
 @contextlib.contextmanager
 def configure(**overrides):
-    """Temporarily override configuration fields (context manager).
+    """Temporarily override base configuration fields (context manager);
+    the environment's overrides still win.
 
     Re-entrant and safe under threads/async: overrides live in a
     ContextVar, so concurrent callers see their own values and
@@ -192,7 +256,7 @@ def configure(**overrides):
     unknown = set(overrides) - names
     if unknown:
         raise TypeError(f"unknown config fields: {sorted(unknown)}")
-    token = _base_var.set(replace(get_config(), **overrides))
+    token = _base_var.set(replace(_current_base(), **overrides))
     try:
         yield _base_var.get()
     finally:

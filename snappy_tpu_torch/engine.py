@@ -57,9 +57,7 @@ def _reference_engine() -> HostEngine:
 def _native_engine() -> HostEngine | None:
     from . import native
 
-    try:
-        native._load()
-    except (OSError, RuntimeError):  # no compiler, or the build failed
+    if not native.available():  # no compiler, or the build failed
         return None
     return HostEngine(
         name="native",

@@ -15,7 +15,8 @@ the API falls back to and the tests compare with (``decompress``,
 test and smoke-run streams
 (``frame_compress``, ``compress``), and the into-buffer calls of the
 streaming adapters (``compress_into``, ``decompress_into``,
-``frame_decompress_len``, ``frame_decompress_into``).
+``frame_decompress_len``, ``frame_decompress_into``), and
+:func:`available`, which says whether the runtime loads.
 """
 
 from __future__ import annotations
@@ -89,6 +90,15 @@ def _load() -> ctypes.CDLL:
             fn.argtypes = argtypes
         _lib = lib
         return lib
+
+
+def available() -> bool:
+    """Whether the host runtime builds and loads here; never raises."""
+    try:
+        _load()
+    except (OSError, RuntimeError, AttributeError):  # no g++, a failed build, a stale library
+        return False
+    return True
 
 
 def _raise(e: _Error):

@@ -26,6 +26,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 BUILD_DIR = _PKG.parent / "build" / "snappy_tpu_torch"
 CSRC = _PKG / "csrc"
@@ -119,3 +121,15 @@ def check(status: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launch."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {status}")
+
+
+def launch(device, what: str, entry, *args) -> None:
+    """Call the C entry ``entry(*args, stream)`` on card ``device``, with that
+    card's current stream last, and raise on a non-zero status.
+
+    A C entry launches on the current card and keys its per-card caches by
+    it, so the call runs with ``device`` made current: without that, a
+    tensor on another card than the current one would be launched to a
+    stream of the wrong card."""
+    with torch.cuda.device(device):
+        check(entry(*args, torch.cuda.current_stream(device).cuda_stream), what)

@@ -100,9 +100,15 @@ routes: list[tuple[int, int, str]] | None = None
 @contextlib.contextmanager
 def _span(name: str, dev: torch.device | None = None):
     """Add the ``with`` body's time to ``spans[name]`` when timing is on;
-    with a CUDA ``dev``, the device time of what it launches."""
+    with a CUDA ``dev``, the device time of what it launches. Under a
+    running ``torch.profiler`` (``utils.profiling.device_trace``) the body
+    is also a labelled range of the trace, so its host gaps carry names."""
     if spans is None:
-        yield
+        if torch.autograd._profiler_enabled():
+            with torch.profiler.record_function(name):
+                yield
+        else:
+            yield
         return
     if dev is not None and dev.type == "cuda":
         start = torch.cuda.Event(enable_timing=True)

@@ -233,11 +233,8 @@ def _crc(rows: torch.Tensor, lengths: torch.Tensor, masked: bool) -> torch.Tenso
     table, ops, _ = _device_tables(dev.index)
     global launches
     launches += 1
-    _build.check(
-        _kernel()(rows.data_ptr(), b, s, lengths.data_ptr(), table, ops, masked, out.data_ptr(),
-                  torch._C._cuda_getCurrentRawStream(dev.index)),
-        "crc32c",
-    )
+    _build.launch(dev, "crc32c", _kernel(),
+                  rows.data_ptr(), b, s, lengths.data_ptr(), table, ops, masked, out.data_ptr())
     return out
 
 

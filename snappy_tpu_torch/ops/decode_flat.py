@@ -125,16 +125,13 @@ def decode_flat(srcs, idx, tile_meta, declens, d_pad: int, layout: int):
     out = torch.empty((b, d_pad), dtype=torch.uint8, device=srcs.device)
     if b == 0 or d_pad == 0:
         return out
-    stream = torch.cuda.current_stream(srcs.device).cuda_stream
     global launches
     launches += 1
     layout_launches[layout] += 1
-    _build.check(
-        _kernel()(
-            srcs.data_ptr(), b, s, idx.data_ptr(), tile_meta.data_ptr(),
-            declens.data_ptr(), d_pad, layout, out.data_ptr(), stream,
-        ),
-        "flat_gather",
+    _build.launch(
+        srcs.device, "flat_gather", _kernel(),
+        srcs.data_ptr(), b, s, idx.data_ptr(), tile_meta.data_ptr(),
+        declens.data_ptr(), d_pad, layout, out.data_ptr(),
     )
     return out
 
@@ -227,13 +224,10 @@ def decode_flat_grouped(srcs, idx, tile_meta, gbuck, declens, d_pad: int, varian
     out = torch.empty((b, d_pad), dtype=torch.uint8, device=srcs.device)
     if b == 0 or d_pad == 0:
         return out
-    stream = torch.cuda.current_stream(srcs.device).cuda_stream
     grouped_launches[variant] += 1
-    _build.check(
-        _grouped_kernel()(
-            srcs.data_ptr(), b, s, idx.data_ptr(), tile_meta.data_ptr(), gbuck.data_ptr(),
-            declens.data_ptr(), d_pad, variant, *window_rows(s // 128), out.data_ptr(), stream,
-        ),
-        "flat_grouped",
+    _build.launch(
+        srcs.device, "flat_grouped", _grouped_kernel(),
+        srcs.data_ptr(), b, s, idx.data_ptr(), tile_meta.data_ptr(), gbuck.data_ptr(),
+        declens.data_ptr(), d_pad, variant, *window_rows(s // 128), out.data_ptr(),
     )
     return out

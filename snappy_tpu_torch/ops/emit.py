@@ -235,10 +235,6 @@ def _count(name: str) -> None:
     entry_launches[name] += 1
 
 
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def fused_emit(lo_row, base, rows_g, out_len, bp_rows, dlt_rows, src):
     """K5: ``(B, 81920)`` uint8 compressed rows from the plan.
 
@@ -258,13 +254,11 @@ def fused_emit(lo_row, base, rows_g, out_len, bp_rows, dlt_rows, src):
     if b == 0:
         return out
     _count("fused_emit")
-    _build.check(
-        _kernel("fused_emit")(
-            lo_row.data_ptr(), base.data_ptr(), rows_g.data_ptr(), out_len.data_ptr(),
-            bp_rows.data_ptr(), dlt_rows.data_ptr(), bp_rows.shape[1] * LANES,
-            src.data_ptr(), src.shape[1], b, out.data_ptr(), _stream(dev),
-        ),
-        "fused_emit",
+    _build.launch(
+        dev, "fused_emit", _kernel("fused_emit"),
+        lo_row.data_ptr(), base.data_ptr(), rows_g.data_ptr(), out_len.data_ptr(),
+        bp_rows.data_ptr(), dlt_rows.data_ptr(), bp_rows.shape[1] * LANES,
+        src.data_ptr(), src.shape[1], b, out.data_ptr(),
     )
     return out
 
@@ -282,13 +276,11 @@ def shift_idx(lo_row, base, rows_g, out_len, bp_rows, dlt_rows):
     if b == 0:
         return idx
     _count("shift_idx")
-    _build.check(
-        _kernel("shift_idx")(
-            lo_row.data_ptr(), base.data_ptr(), rows_g.data_ptr(), out_len.data_ptr(),
-            bp_rows.data_ptr(), dlt_rows.data_ptr(), bp_rows.shape[1] * LANES,
-            b, idx.data_ptr(), _stream(dev),
-        ),
-        "shift_idx",
+    _build.launch(
+        dev, "shift_idx", _kernel("shift_idx"),
+        lo_row.data_ptr(), base.data_ptr(), rows_g.data_ptr(), out_len.data_ptr(),
+        bp_rows.data_ptr(), dlt_rows.data_ptr(), bp_rows.shape[1] * LANES,
+        b, idx.data_ptr(),
     )
     return idx
 
@@ -307,11 +299,8 @@ def emit_bytes(src, idx, out_len):
     if b == 0:
         return out
     _count("emit_bytes")
-    _build.check(
-        _kernel("emit_bytes")(
-            idx.data_ptr(), out_len.data_ptr(), src.data_ptr(), src.shape[1], b,
-            out.data_ptr(), _stream(dev),
-        ),
-        "emit_bytes",
+    _build.launch(
+        dev, "emit_bytes", _kernel("emit_bytes"),
+        idx.data_ptr(), out_len.data_ptr(), src.data_ptr(), src.shape[1], b, out.data_ptr(),
     )
     return out

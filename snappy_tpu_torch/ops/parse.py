@@ -180,14 +180,11 @@ def parse_blocks(lens, jw, blocks):
         return rec0, rec1, cnt
     if b > 2**31 - 1:
         raise ValueError(f"{b} rows exceed one launch's grid")
-    stream = torch.cuda.current_stream(blocks.device).cuda_stream
     global launches
     launches += 1
-    _build.check(
-        _kernel()(
-            lens.data_ptr(), jw.data_ptr(), blocks.data_ptr(), b,
-            rec0.data_ptr(), rec1.data_ptr(), cnt.data_ptr(), stream,
-        ),
-        "parse",
+    _build.launch(
+        blocks.device, "parse", _kernel(),
+        lens.data_ptr(), jw.data_ptr(), blocks.data_ptr(), b,
+        rec0.data_ptr(), rec1.data_ptr(), cnt.data_ptr(),
     )
     return rec0, rec1, cnt

@@ -147,12 +147,9 @@ def decode_records(srcs, recs, nops, declens, d_pad: int):
         return dst
     global launches
     launches += 1
-    _build.check(
-        _kernel()(
-            srcs.data_ptr(), b, s, recs.data_ptr(), recs.shape[1], nops.data_ptr(),
-            declens.data_ptr(), d_pad, dst.data_ptr(),
-            torch.cuda.current_stream(srcs.device).cuda_stream,
-        ),
-        "records",
+    _build.launch(
+        srcs.device, "records", _kernel(),
+        srcs.data_ptr(), b, s, recs.data_ptr(), recs.shape[1], nops.data_ptr(),
+        declens.data_ptr(), d_pad, dst.data_ptr(),
     )
     return dst

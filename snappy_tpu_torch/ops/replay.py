@@ -243,14 +243,11 @@ def decode_replay(srcs, src_lens, declens, d_pad: int):
     errs = torch.empty(b, dtype=torch.int32, device=srcs.device)
     if b == 0:
         return dst, errs
-    stream = torch.cuda.current_stream(srcs.device).cuda_stream
     global launches
     launches += 1
-    _build.check(
-        _kernel()(
-            srcs.data_ptr(), b, s, src_lens.data_ptr(), declens.data_ptr(),
-            d_pad, dst.data_ptr(), errs.data_ptr(), stream,
-        ),
-        "replay",
+    _build.launch(
+        srcs.device, "replay", _kernel(),
+        srcs.data_ptr(), b, s, src_lens.data_ptr(), declens.data_ptr(),
+        d_pad, dst.data_ptr(), errs.data_ptr(),
     )
     return dst, errs

@@ -1,0 +1,49 @@
+"""Device meshes for the sharded entries.
+
+The port of ``snappy_tpu/parallel/mesh.py``. A JAX mesh names the
+devices that hold the shards of an array; here a :class:`Mesh` is the
+same list of ``torch.device``, in block order, and each sharded entry
+runs one shard on each. The mesh has one axis, the independent blocks:
+Snappy has no tensor or pipeline dimension to shard. The JAX module's
+``ParallelConfig`` and ``auto_mesh`` are not ported: nothing reads the
+former, and the latter is a second name for :func:`make_mesh`.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """A 1-D mesh: shard ``i`` of the block axis runs on ``devices[i]``.
+
+    A device may repeat, as the CPU tests' ``[torch.device("cpu")] * 4``
+    stands for four devices (the JAX tests' virtual CPU devices), or two
+    shards share one card. ``rank`` and ``world_size`` place this process's
+    mesh in a ``torch.distributed`` world (``multihost.global_mesh``); a
+    local mesh is rank 0 of 1."""
+
+    devices: tuple[torch.device, ...]
+    rank: int = 0
+    world_size: int = 1
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+
+def make_mesh(devices=None) -> Mesh:
+    """1-D mesh over ``devices`` (default: every CUDA device of this
+    process). Raises when no devices are given and there is no card: there
+    is no CPU fallback."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass the mesh's devices, e.g. [torch.device('cpu')] * 4")
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devices = tuple(torch.device(d) for d in devices)
+    if not devices:
+        raise ValueError("a mesh needs at least one device")
+    return Mesh(devices)

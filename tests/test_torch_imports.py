@@ -40,8 +40,15 @@ PORT_MODULES = [
     "snappy_tpu_torch.ops.records",
     "snappy_tpu_torch.ops.replay",
     "snappy_tpu_torch.ops.resolve",
+    "snappy_tpu_torch.parallel",
+    "snappy_tpu_torch.parallel.mesh",
+    "snappy_tpu_torch.parallel.multihost",
+    "snappy_tpu_torch.parallel.sharded",
     "snappy_tpu_torch.raw",
     "snappy_tpu_torch.read",
+    "snappy_tpu_torch.utils",
+    "snappy_tpu_torch.utils.cpp_oracle",
+    "snappy_tpu_torch.utils.profiling",
     "snappy_tpu_torch.write",
 ]
 

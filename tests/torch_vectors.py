@@ -280,3 +280,66 @@ def k9_planes(d_pad: int, seed: int):
     a[5, 0] = 0                                # position 0 points to itself
     a[6] = np.where(p % 4096 == 0, FLAG + p, p - 1)  # a chain of 4,095 in each window
     return torch.tensor(a, dtype=torch.int32)
+
+
+def cpu_mesh(n: int):
+    """A mesh of ``n`` CPU devices (one device, repeated), as the JAX tests'
+    virtual CPU devices."""
+    import torch
+
+    from snappy_tpu_torch.parallel import make_mesh
+
+    return make_mesh([torch.device("cpu")] * n)
+
+
+def shard_blocks(n: int = 8) -> tuple[np.ndarray, np.ndarray]:
+    """``n`` blocks of 65,536 bytes for the sharded entries: 1-4 KiB of
+    text, HTML, protobuf, table data, a JPEG, zeros and random bytes of a
+    short alphabet, each a different length, zero-padded. Returns
+    ``(blocks (n, 65536) uint8, lengths (n,) int32)``."""
+    rng = np.random.default_rng(23)
+    names = ["alice29.txt", "html", "geo.protodata", "kppkn.gtb", "fireworks.jpeg"]
+    blocks = np.zeros((n, 65536), np.uint8)
+    lens = np.zeros(n, np.int32)
+    for i in range(n):
+        m = 1024 + 397 * i
+        if i % 7 == 5:
+            row = bytes(m)
+        elif i % 7 == 6:
+            row = rng.integers(0, 4, m, dtype=np.uint8).tobytes()
+        else:
+            name = names[i % 7 % len(names)]
+            row = _corpus(name)[1000 * i : 1000 * i + m]
+        blocks[i, :m] = np.frombuffer(row, np.uint8)
+        lens[i] = m
+    return blocks, lens
+
+
+def shard_bodies(blocks: np.ndarray, lens: np.ndarray, width: int = 4096):
+    """Each block's raw body (no varint) by the port's host codec, zero-padded
+    to ``width``: ``(srcs (n, width) uint8, src_lens (n,) int32)``."""
+    srcs = np.zeros((len(lens), width), np.uint8)
+    src_lens = np.zeros(len(lens), np.int32)
+    for i, n in enumerate(lens):
+        body, _ = raw_body(blocks[i, :n].tobytes())
+        srcs[i, : len(body)] = np.frombuffer(body, np.uint8)
+        src_lens[i] = len(body)
+    return srcs, src_lens
+
+
+def shard_decode_batch(blocks: np.ndarray, lens: np.ndarray):
+    """The blocks' bodies (:func:`shard_bodies`), then the first 8 corrupt
+    vectors: ``(srcs (n + 8, 4096) uint8, src_lens, declens (int32), opbits
+    (n + 8, 512) uint8)``, the op-start bitmaps by the port's host runtime."""
+    from snappy_tpu_torch import native
+
+    srcs, src_lens = shard_bodies(blocks, lens)
+    bad = np.zeros((8, srcs.shape[1]), np.uint8)
+    for i, (body, _) in enumerate(CORRUPT[:8]):
+        bad[i, : len(body)] = np.frombuffer(body, np.uint8)
+    srcs = np.concatenate([srcs, bad])
+    src_lens = np.concatenate([src_lens, [len(b) for b, _ in CORRUPT[:8]]]).astype(np.int32)
+    declens = np.concatenate([lens, [d for _, d in CORRUPT[:8]]]).astype(np.int32)
+    bits = np.zeros((len(srcs), srcs.shape[1] // 8), np.uint8)
+    native.scan_ops_batch(srcs, src_lens.astype(np.uint64), bits)
+    return srcs, src_lens, declens, bits
