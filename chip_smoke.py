@@ -97,6 +97,13 @@ a graph cannot hold), and ``call_ms`` over wrapper calls; K4's and K8's
 (mean and most over the live blocks, ``parse.parse_lockstep``'s step
 counts).
 
+K5's and both K6 halves' ``ms`` are device-only (their wrappers' calls in
+a CUDA graph) beside ``call_ms`` over calls, and ``emit_bytes``' yardstick
+``torch.gather`` likewise (``library_ms``, ``library_call_ms``); K6's
+gather is also held against its plain version on edge rows (lengths 0, 1,
+15, 16, 17, 1,023, 1,025 and 81,920, indices -1, ``src_w`` and ``src_w -
+1``, batches of one row and of 2,049).
+
 K1 is held and timed at 512 rows of 65,536 random bytes with random
 lengths and on the frame's largest launch group (455 decoded rows with the
 chunks' lengths, as the flat route checks them; its CRCs also against the
@@ -132,6 +139,20 @@ busy share of the traced window, the 10 longest device operations and the
 5 longest gaps between them with the host ops and the API's labelled
 spans in each. Whether ``ncu`` is on the path, and its ``--version``, go
 to the report.
+
+The port's examples run on the card under ``SNAPPY_TPU_ENGINE=device``,
+each ``main()`` in this process with the counts set to 0 before it:
+``compress`` of the stream (the device writer, K1 and K7) gives the host
+codec's frame, ``decompress`` of that frame (K2 on each chunk) gives the
+stream back, and ``compress_escaped`` prints the lines of its run on the
+host engine; then ``compress`` piped into ``decompress``, each a process of
+its own, round-trips a corpus file through the host codec's frame. The GPU
+pipeline (``examples.gpu_pipeline.run``) runs at 512 KiB shards on one
+card (K2 once a shard) and on four CPU entries, whose rows must be equal
+and losses and table within rtol 1e-5; then at two shards of 32 MiB on
+``make_mesh()``, printing each step's host seconds (walk, flatten), decode
+and step seconds, loss and peak device bytes, with the rows on the card
+when the step runs.
 
 It prints one ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Details go to
@@ -217,6 +238,19 @@ def bound_ms(nbytes: int, int_ops: int = 0) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = int_ops / PEAK_INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def gather_sectors(src: torch.Tensor, idx: torch.Tensor, out_len: torch.Tensor) -> int:
+    """Distinct 32-byte sectors of ``src`` that K6's gather reads: one per
+    sector that some output byte below ``out_len`` takes a byte from. Device
+    memory moves sectors, so this is the gather's least read traffic over
+    32, where the byte bound counts one byte an output byte."""
+    d = torch.arange(idx.shape[1], device=idx.device)[None, :]
+    ok = (d < out_len[:, None]) & (idx >= 0) & (idx < src.shape[1])
+    rows = torch.arange(idx.shape[0], device=idx.device, dtype=torch.int64)[:, None]
+    per_row = (src.shape[1] + 31) // 32
+    keys = (rows * per_row + (idx.to(torch.int64) >> 5))[ok]
+    return int(torch.unique(keys).numel())
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -586,6 +620,124 @@ def two_ranks_on_one_card(dev, data: bytes, host_stream: bytes, per_rank: int):
           "the two ranks' rows at their offsets differ from the host codec's stream")
     subprocess.run(["rm", "-rf", work], check=True)
     return {"blocks_per_rank": per_rank, "seconds": seconds, "ranks": ranks}
+
+
+def run_example(name: str, argv=(), stdin: bytes = b"", engine: str | None = None) -> bytes:
+    """``snappy_tpu_torch.examples.<name>``'s ``main()`` in this process, under
+    ``SNAPPY_TPU_ENGINE=engine`` (unset when None: the examples then take
+    the card), with ``stdin`` as its standard input and ``argv`` as its
+    arguments; returns its standard output."""
+    import importlib
+
+    mod = importlib.import_module(f"snappy_tpu_torch.examples.{name}")
+    saved = sys.stdin, sys.stdout, sys.argv, os.environ.get("SNAPPY_TPU_ENGINE")
+    out = io.BytesIO()
+    sys.stdin = io.TextIOWrapper(io.BytesIO(stdin))
+    sys.stdout = io.TextIOWrapper(out, write_through=True)
+    sys.argv = [name, *argv]
+    os.environ.pop("SNAPPY_TPU_ENGINE", None)
+    if engine is not None:
+        os.environ["SNAPPY_TPU_ENGINE"] = engine
+    try:
+        mod.main()
+        sys.stdout.flush()
+        return out.getvalue()
+    finally:
+        sys.stdin, sys.stdout, sys.argv = saved[:3]
+        if saved[3] is None:
+            os.environ.pop("SNAPPY_TPU_ENGINE", None)
+        else:
+            os.environ["SNAPPY_TPU_ENGINE"] = saved[3]
+
+
+def examples_on_the_card(data: bytes, frame: bytes, declens: list[int], run_counted) -> dict:
+    """The examples as a user runs them, naming no engine (so on the card):
+    ``compress`` of the stream (the device writer: K1 and K7 on each 16 MiB
+    piece) must give the host codec's frame, ``decompress`` of it (K2 on
+    each compressed chunk, whose decoded lengths are ``declens``) the
+    stream, and ``compress_escaped`` (its short frame written on the host,
+    read back by K2 and K1) the lines of the host engine's run, which the
+    CPU tests hold to the JAX example's. Then the two stream examples as
+    processes of their own, piped into each other on a corpus file.
+    ``run_counted(path, fn, want)`` runs ``fn`` with the counts reset and
+    fails unless it launched exactly ``want``."""
+    from snappy_tpu_torch.examples.compress import COPY_BYTES
+    from snappy_tpu_torch.ops import packing
+
+    # A piece of more than one chunk is one launch of K1 and K7; a shorter
+    # tail is framed on the host.
+    pieces = sum(min(COPY_BYTES, len(data) - o) > 65536 for o in range(0, len(data), COPY_BYTES))
+    got, s_c = run_counted("examples_compress", lambda: run_example("compress", stdin=data),
+                           {"encode": pieces, "crc32c": pieces})
+    check(got == frame, "the compress example's frame differs from the host codec's")
+    # The reader decodes chunk by chunk: K2 in the layout of the chunk's
+    # padded width (layout 1 for whole 16 KiB groups).
+    layout1 = sum(packing.pad_to_bucket(max(d, 1), 1024) % 16384 == 0 for d in declens)
+    want = {"flat_gather[layout=1]": layout1, "flat_gather[layout=0]": len(declens) - layout1}
+    got, s_d = run_counted("examples_decompress", lambda: run_example("decompress", stdin=frame),
+                           {k: v for k, v in want.items() if v})
+    check(got == data, "the decompress example did not give back the stream")
+    arg = "hello\tworld 'quoted' \"x\" \\ " + "abc" * 30
+    lines, _ = run_counted("examples_escaped", lambda: run_example("compress_escaped", [arg]),
+                           {"crc32c": 1, "flat_gather[layout=0]": 1})
+    host_lines = run_example("compress_escaped", [arg], engine="native")
+    check(lines == host_lines and len(lines.splitlines()) == 2,
+          f"compress_escaped on the card printed {lines!r}, the host engine {host_lines!r}")
+    # As a user runs them: two processes, piped.
+    pipe_dir = os.path.join(HERE, "chiprun_out", "examples")
+    os.makedirs(pipe_dir, exist_ok=True)
+    src = os.path.join(HERE, "data", "lcet10.txt")
+    with open(src, "rb") as f:
+        text = f.read()
+    env = {k: v for k, v in os.environ.items() if k != "SNAPPY_TPU_ENGINE"}
+    env["PYTHONPATH"] = HERE
+    cmd = (f"{sys.executable} -m snappy_tpu_torch.examples.compress < {src} | tee {pipe_dir}/mid.sz "
+           f"| {sys.executable} -m snappy_tpu_torch.examples.decompress > {pipe_dir}/out")
+    t0 = time.perf_counter()
+    r = subprocess.run(["bash", "-o", "pipefail", "-c", cmd], env=env, capture_output=True, text=True)
+    s_pipe = time.perf_counter() - t0
+    check(r.returncode == 0 and not r.stderr, f"the examples' pipe: {r.returncode} {r.stderr}")
+    with open(os.path.join(pipe_dir, "mid.sz"), "rb") as f:
+        mid = f.read()
+    with open(os.path.join(pipe_dir, "out"), "rb") as f:
+        back = f.read()
+    from snappy_tpu_torch import native
+
+    check(mid == native.frame_compress(text) and back == text,
+          "the examples' pipe did not give the host codec's frame and the input back")
+    return {"compress_s": s_c, "decompress_s": s_d, "escaped_lines": lines.decode(),
+            "pipe_bytes": len(text), "pipe_s": s_pipe}
+
+
+def pipeline_on_the_card(run_counted) -> dict:
+    """``examples.gpu_pipeline.run`` at 512 KiB shards on one card (K2 once a
+    shard) and on four CPU entries: the decoded rows equal, the losses and
+    the table within rtol 1e-5 (float32 sums in another order). Then at full
+    size on ``make_mesh()``: two shards of 32 MiB (512 chunks each), each
+    step's host, decode and step seconds, loss and peak device bytes; the
+    rows lie on the card when the step runs."""
+    from snappy_tpu_torch.examples import gpu_pipeline
+
+    (l_card, p_card, r_card), s_card = run_counted(
+        "pipeline", lambda: gpu_pipeline.run("cuda", 512 << 10, mesh_size=1),
+        {"flat_gather[layout=1]": 2})
+    t0 = time.perf_counter()
+    l_cpu, p_cpu, r_cpu = gpu_pipeline.run("cpu", 512 << 10)
+    s_cpu = time.perf_counter() - t0
+    check(all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(r_card, r_cpu)),
+          "the pipeline's rows on the card differ from the CPU run's")
+    check(np.allclose(l_card, l_cpu, rtol=1e-5, atol=0)
+          and torch.allclose(p_card, p_cpu, rtol=1e-5, atol=1e-8),
+          f"the pipeline's losses on the card {l_card} and on the CPU {l_cpu}")
+    stats = []
+    n_cards = torch.cuda.device_count()
+    _, s_full = run_counted("pipeline_full", lambda: gpu_pipeline.run("cuda", 32 << 20, stats=stats),
+                            {"flat_gather[layout=1]": 2 * n_cards})
+    check(all(st["rows_device"].startswith("cuda") for st in stats),
+          f"the step ran on rows that are not on the card: {stats}")
+    return {"small": {"shard_bytes": 512 << 10, "card_s": s_card, "cpu_s": s_cpu,
+                      "losses_card": l_card, "losses_cpu": l_cpu},
+            "full": {"shard_bytes": 32 << 20, "cards": n_cards, "seconds": s_full, "steps": stats}}
 
 
 def trace_flat_route(fn, out_dir: str):
@@ -1156,26 +1308,45 @@ def main() -> int:
          5 * sum_len + out_bytes + 4 * rows, 0, lambda: torch.gather(padded, 1, absidx),
          "snappy_tpu/ops/pallas/encode_flat.py:474 emit_bytes_pallas"),
     ):
+        # "ms" device-only: the wrappers read nothing back, so their calls go
+        # into a CUDA graph; "call_ms" over wrapper calls. torch.gather, K6's
+        # yardstick, likewise.
         bnd, by = bound_ms(nbytes, ops)
         kernels.append({
             "name": name, "route": "cuda", "source": "snappy_tpu_torch/csrc/emit.cu",
             "replaces": where, "shape": [rows, emit.N_GROUPS * emit.GROUP],
             "equal": torch.equal(got, want), "max_abs_err": max_abs_err(got, want),
-            "ms": cuda_ms(fn, 20), "plain_ms": cuda_ms(plain, 1, warm=0),
-            "bound_ms": bnd, "bound_by": by,
-            "library_ms": cuda_ms(lib, 20) if lib else None,
+            "ms": device_ms(fn, 10), "call_ms": cuda_ms(fn, 20),
+            "plain_ms": cuda_ms(plain, 1, warm=0), "bound_ms": bnd, "bound_by": by,
+            "library_ms": device_ms(lib, 10) if lib else None,
+            "library_call_ms": cuda_ms(lib, 20) if lib else None,
         })
-    # K5 device-only: its wrapper reads nothing back, so its calls go into a
-    # CUDA graph; "ms" above is over wrapper calls. Its walk, followed in
-    # numpy (emit.fused_emit_walk), must give the plain version's indices on
-    # the group's first 16 rows.
-    k5 = next(k for k in kernels if k["name"] == "fused_emit")
-    k5["call_ms"] = k5["ms"]
-    k5["ms"] = device_ms(lambda: emit.fused_emit(*plan, src), 10)
+    k5, k6a, k6b = kernels[-3:]
+    # Device memory moves 32-byte sectors: the sectors K6's gather reads (a
+    # header byte's cell is one) bound it more tightly than a byte each.
+    k6b["src_sectors"] = gather_sectors(src, idx6, out_len)
+    k6b["bound_with_sectors_ms"] = bound_ms(
+        4 * sum_len + 32 * k6b["src_sectors"] + out_bytes + 4 * rows)[0]
+    print(f"K6: shift_idx {k6a['ms']:.6f} ms device-only, {k6a['call_ms']:.6f} over calls "
+          f"(bound {k6a['bound_ms']:.6f}); emit_bytes {k6b['ms']:.6f} device-only, "
+          f"{k6b['call_ms']:.6f} over calls (bound {k6b['bound_ms']:.6f}, with the "
+          f"{k6b['src_sectors']} source sectors it reads {k6b['bound_with_sectors_ms']:.6f}; torch.gather "
+          f"{k6b['library_ms']:.6f} device-only, {k6b['library_call_ms']:.6f} over calls)",
+          flush=True)
+    # K5's walk, followed in numpy (emit.fused_emit_walk), must give the plain
+    # version's indices on the group's first 16 rows.
     walk_rows = [x[:16].cpu() for x in plan]
     k5["walk_equals_plain"] = torch.equal(emit.fused_emit_walk(*walk_rows),
                                           emit.shift_idx_plain(*walk_rows))
     check(k5["walk_equals_plain"], "K5's walk model differs from its plain version")
+    # K6's gather on edge rows (emit.edge_batch): lengths 0, 1, 15, 16, 17,
+    # 1,023, 1,025 and 81,920, indices -1, src_w and src_w - 1, batches of one
+    # row and of 2,049.
+    k6b["edge_rows_equal"] = all(
+        torch.equal(emit.emit_bytes(*e), emit.emit_bytes_plain(*e))
+        for e in (emit.edge_batch(lens, dev) for lens in
+                  [[n] for n in emit.EDGE_LENS] + [[emit.EDGE_LENS[i % 8] for i in range(2049)]]))
+    check(k6b["edge_rows_equal"], "K6's emit_bytes differs from its plain version on edge rows")
     print(f"K5: {k5['ms']:.6f} ms device-only, {k5['call_ms']:.6f} over calls (bound "
           f"{k5['bound_ms']:.6f}); its walk model equals the plain version on 16 rows")
     check(torch.equal(out5, out6), "K5 and K6 give different bytes")
@@ -1556,6 +1727,21 @@ def main() -> int:
         r["encode_launches"] for r in report["two_ranks_one_card"]["ranks"])}
     print(f"two gloo ranks on cuda:0, 512 blocks each with K7, rows at their offsets equal to "
           f"the host codec's stream: {report['two_ranks_one_card']}")
+
+    # -- the examples and the GPU pipeline --------------------------------------------
+    # Each runs with every count set to 0 just before it and read just after.
+    report["examples"] = examples_on_the_card(data, frame, [c[1] for c in chunks], run_counted)
+    print(f"examples on the card (no engine named): compress {report['examples']['compress_s']:.4f} s "
+          f"(the host codec's frame), decompress {report['examples']['decompress_s']:.4f} s "
+          f"(the stream back), compress_escaped's lines equal the host engine's, the pipe of "
+          f"two processes {report['examples']['pipe_s']:.4f} s; launches "
+          f"{ {p: {k: v for k, v in by_path[p].items() if v} for p in by_path if p.startswith('examples')} }")
+    report["pipeline"] = pipeline_on_the_card(run_counted)
+    print(f"gpu_pipeline at 512 KiB shards: rows on the card equal the CPU run's, losses "
+          f"{report['pipeline']['small']['losses_card']} (card) and "
+          f"{report['pipeline']['small']['losses_cpu']} (CPU)")
+    for k, st in enumerate(report["pipeline"]["full"]["steps"]):
+        print(f"gpu_pipeline at 32 MiB shards, step {k}: {json.dumps(st)}")
 
     # -- a torch.profiler trace of one warm call of the flat route -------------------
     traced, report["flat_trace"] = trace_flat_route(

@@ -22,8 +22,12 @@ launches of chunks on the card.
 """
 
 from . import engine, error, raw, read, write
-from .config import Config, configure, get_config
+from .config import Config, configure, get_config, set_config
+from .error import SnappyError
 from .ops.api import compress, decompress, decompress_frame
+
+# The JAX package's version: the port mirrors its surface and its bytes.
+__version__ = "0.4.0"
 
 __all__ = [
     "compress",
@@ -31,10 +35,26 @@ __all__ = [
     "decompress_frame",
     "engine",
     "error",
+    "SnappyError",
     "raw",
     "read",
     "write",
     "Config",
     "configure",
     "get_config",
+    "set_config",
+    "__version__",
 ]
+
+#: Submodules loaded on first access, as the JAX package loads its own.
+_LAZY = ("frame", "format", "ops", "parallel")
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        mod = importlib.import_module(f".{name}", __name__)
+        globals()[name] = mod
+        return mod
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -41,11 +41,23 @@
 // store zeros 16 bytes a store and read no plan. A step takes fewer groups
 // where their windows would overrun the ring.
 //
-// K6 (the split form, on no main path) keeps one block of 256 threads per
-// (group, row): the block loads the group's window into shared memory and
-// takes the inclusive prefix of its deltas, each thread binary-searches 4
-// consecutive output bytes. A group wholly past out_len writes zeros and
-// reads nothing.
+// K6 (the split form, on no main path): shift_idx keeps one block of 256
+// threads per (group, row): the block loads the group's window into shared
+// memory and takes the inclusive prefix of its deltas, each thread
+// binary-searches 4 consecutive output bytes; a group wholly past out_len
+// writes zeros and reads nothing. emit_bytes is bound by its gathers: each
+// header byte it reads sits in its record's own 32-byte cell of the plane,
+// so device memory moves a sector for it (the compress group's gathers
+// touch 8.1 M sectors, 260 MB, beside 128 MB of indices and 168 MB of
+// output). A CTA of kWalkThreads walks a run of kRunGroups groups of a row
+// (a row is kRuns CTAs, as in K5), each warp 512 output bytes a step. A
+// thread's 16 bytes are four 4-byte words, one in each 128-byte slab of its
+// warp's span: four 16-byte index loads, 16 gathers in flight, four stores,
+// and each gather and store instruction of a warp covers 128 consecutive
+// output bytes, whose sources share sectors (16 consecutive bytes a thread
+// would spread one instruction over 512 bytes: slower, emit_bytes_probe.py).
+// A warp's span wholly at or past out_len (all of a padding row) stores
+// zeros 16 bytes a store and reads nothing.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -388,24 +400,54 @@ shift_idx_kernel(Plan pl, int32_t* __restrict__ idx) {
   *reinterpret_cast<int4*>(idx + b * (kGroups * kGroup) + d0) = v;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// K6's gather takes K5's CTA and run: kWalkThreads threads walk kRunGroups
+// groups of a row, a row is kRuns CTAs.
+constexpr int kSlabs = 4;  // 4-byte words a thread a step, one in each 128-byte slab
+constexpr int kWarpSpan = 128 * kSlabs;  // output bytes a warp takes a step
+constexpr int kEmitStep = kWalkThreads / 32 * kWarpSpan;
+static_assert(kRuns * kRunGroups == kGroups, "a row is whole runs");
+static_assert((kRunGroups * kGroup) % kEmitStep == 0, "a run is whole steps");
+
+__global__ void __launch_bounds__(kWalkThreads)
 emit_bytes_kernel(const int32_t* __restrict__ idx, const int32_t* __restrict__ out_len,
                   const uint8_t* __restrict__ src, int64_t src_w,
                   uint8_t* __restrict__ out) {
   const int64_t b = blockIdx.y;
-  const int d0 = blockIdx.x * kGroup + threadIdx.x * 4;
   const int olen = out_len[b];
-  uint32_t word = 0;
-  if (d0 < olen) {
-    const int4 v = *reinterpret_cast<const int4*>(idx + b * (kGroups * kGroup) + d0);
-    const int32_t ix[4] = {v.x, v.y, v.z, v.w};
-    const uint8_t* row = src + b * src_w;
-#pragma unroll
-    for (int k = 0; k < 4; k++) {
-      if (d0 + k < olen) word |= gather_byte(row, src_w, ix[k]) << (8 * k);
+  const int32_t* irow = idx + b * (kGroups * kGroup);
+  const uint8_t* srow = src + b * src_w;
+  uint8_t* orow = out + b * (kGroups * kGroup);
+  const int lane = threadIdx.x & 31;
+  const int lo = blockIdx.x * (kRunGroups * kGroup);
+  const int hi = lo + kRunGroups * kGroup;
+  for (int s0 = lo + (threadIdx.x >> 5) * kWarpSpan; s0 < hi; s0 += kEmitStep) {
+    if (s0 >= olen) {  // the warp's span is padding
+      *reinterpret_cast<uint4*>(orow + s0 + 16 * lane) = make_uint4(0u, 0u, 0u, 0u);
+      continue;
     }
+    int32_t ix[kSlabs][4];  // every index first, so the 16 gathers are in flight at once
+#pragma unroll
+    for (int w = 0; w < kSlabs; w++) {
+      const int4 v = __ldg(reinterpret_cast<const int4*>(irow + s0 + w * 128 + 4 * lane));
+      ix[w][0] = v.x;
+      ix[w][1] = v.y;
+      ix[w][2] = v.z;
+      ix[w][3] = v.w;
+    }
+    uint32_t word[kSlabs] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int w = 0; w < kSlabs; w++) {
+#pragma unroll
+      for (int j = 0; j < 4; j++) {
+        const int d = s0 + w * 128 + 4 * lane + j;
+        const int32_t i = ix[w][j];
+        word[w] |= (d < olen && i >= 0 && i < src_w ? uint32_t{__ldg(srow + i)} : 0u) << (8 * j);
+      }
+    }
+#pragma unroll
+    for (int w = 0; w < kSlabs; w++)
+      *reinterpret_cast<uint32_t*>(orow + s0 + w * 128 + 4 * lane) = word[w];
   }
-  *reinterpret_cast<uint32_t*>(out + b * (kGroups * kGroup) + d0) = word;
 }
 
 Plan make_plan(const int32_t* lo_row, const int32_t* base, const int32_t* rows_g,
@@ -441,7 +483,7 @@ extern "C" int stpu_cuda_shift_idx(const int32_t* lo_row, const int32_t* base,
 extern "C" int stpu_cuda_emit_bytes(const int32_t* idx, const int32_t* out_len,
                                     const uint8_t* src, int64_t src_w, int64_t n_rows,
                                     uint8_t* out, void* stream) {
-  emit_bytes_kernel<<<grid_of(n_rows), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      idx, out_len, src, src_w, out);
+  emit_bytes_kernel<<<dim3(kRuns, static_cast<unsigned>(n_rows)), kWalkThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(idx, out_len, src, src_w, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,10 +13,12 @@ the API falls back to and the tests compare with (``decompress``,
 ``decompress_len``, ``decompress_batch``, ``crc32c_masked``,
 ``frame_decompress``), the encoders of the host engine, which also make
 test and smoke-run streams
-(``frame_compress``, ``compress``), and the into-buffer calls of the
+(``frame_compress``, ``compress``), the into-buffer calls of the
 streaming adapters (``compress_into``, ``decompress_into``,
-``frame_decompress_len``, ``frame_decompress_into``), and
-:func:`available`, which says whether the runtime loads.
+``frame_decompress_len``, ``frame_decompress_into``), the host codec's
+batch calls (``compress_batch_into``, ``decompress_batch_into``,
+``compress_batch``) and unmasked ``crc32c``, and :func:`available`, which
+says whether the runtime loads.
 """
 
 from __future__ import annotations
@@ -55,15 +57,17 @@ def _load() -> ctypes.CDLL:
         lib = host_lib(_SRC)
         ptr, u64, i64, cint = ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int64, ctypes.c_int
         errp = ctypes.POINTER(_Error)
+        # srcs, src_stride, lens, dsts, dst_stride, out_lens, errs, n, threads
+        batch = (None, [ptr, u64, ptr, ptr, u64, ptr, ptr, u64, cint])
         sigs = {
+            "stpu_crc32c": (ctypes.c_uint32, [ctypes.c_char_p, ctypes.c_size_t]),
             "stpu_crc32c_masked": (ctypes.c_uint32, [ctypes.c_char_p, ctypes.c_size_t]),
             "stpu_max_compress_len": (u64, [u64]),
             "stpu_compress": (i64, [ctypes.c_char_p, u64, ptr, u64, errp]),
             "stpu_decompress_len": (i64, [ctypes.c_char_p, u64, errp]),
             "stpu_decompress": (i64, [ctypes.c_char_p, u64, ptr, u64, errp]),
-            "stpu_decompress_batch": (
-                None, [ptr, u64, ptr, ptr, u64, ptr, ptr, u64, cint]
-            ),
+            "stpu_compress_batch": batch,
+            "stpu_decompress_batch": batch,
             "stpu_frame_compress": (i64, [ctypes.c_char_p, u64, ptr, u64, cint, errp]),
             "stpu_frame_decompress_len": (i64, [ctypes.c_char_p, u64, errp]),
             "stpu_frame_decompress": (
@@ -127,6 +131,77 @@ def _in_rows(arr, dtype):
     if arr.dtype != dtype:
         raise TypeError(f"expected {np.dtype(dtype).name} array, got {arr.dtype}")
     return np.ascontiguousarray(arr)
+
+
+def _out_rows(arr, dtype):
+    """A written-to argument: a contiguous copy would drop the results."""
+    if arr.dtype != dtype:
+        raise TypeError(f"expected {np.dtype(dtype).name} array, got {arr.dtype}")
+    if not arr.flags.c_contiguous:
+        raise ValueError("output arrays must be C-contiguous")
+    return arr
+
+
+def _raise_first(errs: np.ndarray) -> None:
+    """Raise the exception of the first failing ``[code, a, b, c]`` row."""
+    bad = np.nonzero(errs[:, 0])[0]
+    if bad.size:
+        e = _Error()
+        e.code, e.a, e.b, e.c = (int(v) for v in errs[int(bad[0])])
+        _raise(e)
+
+
+def _batch(entry: str, srcs, lens, dsts, out_lens, errs, threads: int) -> None:
+    srcs = _in_rows(srcs, np.uint8)
+    lens = _in_rows(lens, np.uint64)
+    dsts = _out_rows(dsts, np.uint8)
+    out_lens = _out_rows(out_lens, np.uint64)
+    errs = _out_rows(errs, np.uint64)
+    getattr(_load(), entry)(
+        srcs.ctypes.data, srcs.shape[-1], lens.ctypes.data, dsts.ctypes.data, dsts.shape[-1],
+        out_lens.ctypes.data, errs.ctypes.data, lens.shape[0], _threads(threads),
+    )
+
+
+def compress_batch_into(srcs, lens, dsts, out_lens, errs, threads: int = 0) -> None:
+    """Compress ``n`` raw streams chunk-parallel across host cores.
+
+    ``srcs``: ``(n, src_stride)`` uint8, row ``i`` holding ``lens[i]``
+    (uint64) input bytes; ``dsts``: ``(n, dst_stride)`` uint8 with
+    ``dst_stride >= max_compress_len(lens.max())``; ``out_lens``: ``(n,)``
+    uint64; ``errs``: ``(n, 4)`` uint64, each row ``[code, a, b, c]`` (0:
+    the row compressed). Rows fail on their own; nothing raises. ``threads``
+    0 means all: ``Config.threads`` when set, else every core."""
+    _batch("stpu_compress_batch", srcs, lens, dsts, out_lens, errs, threads)
+
+
+def decompress_batch_into(srcs, lens, dsts, out_lens, errs, threads: int = 0) -> None:
+    """Decompress ``n`` raw streams (varint header included) into the rows of
+    ``dsts``; arguments and ``errs`` as for :func:`compress_batch_into`."""
+    _batch("stpu_decompress_batch", srcs, lens, dsts, out_lens, errs, threads)
+
+
+def compress_batch(blocks: list[bytes], threads: int = 0) -> list[bytes]:
+    """Compress byte strings chunk-parallel; raises the first failing row's
+    exception in input order (an oversized row's ``TooBig`` before any
+    work), as compressing them one by one would."""
+    if not blocks:
+        return []
+    for b in blocks:
+        if max_compress_len(len(b)) == 0:
+            raise err_mod.TooBig(given=len(b), max=MAX_INPUT_SIZE)
+    n, width = len(blocks), max(len(b) for b in blocks)
+    srcs = np.zeros((n, max(width, 1)), np.uint8)
+    lens = np.empty(n, np.uint64)
+    for i, b in enumerate(blocks):
+        srcs[i, : len(b)] = np.frombuffer(b, np.uint8)
+        lens[i] = len(b)
+    dsts = np.empty((n, max_compress_len(width)), np.uint8)
+    out_lens = np.empty(n, np.uint64)
+    errs = np.zeros((n, 4), np.uint64)
+    compress_batch_into(srcs, lens, dsts, out_lens, errs, threads)
+    _raise_first(errs)
+    return [dsts[i, : int(out_lens[i])].tobytes() for i in range(n)]
 
 
 def compress(data: bytes) -> bytes:
@@ -213,19 +288,13 @@ def decompress_batch(blocks: list[bytes], threads: int = 0) -> list[bytes]:
     dsts = np.empty((n, d_cap), np.uint8)
     out_lens = np.empty(n, np.uint64)
     errs = np.zeros((n, 4), np.uint64)
-    _load().stpu_decompress_batch(
-        srcs.ctypes.data, srcs.shape[1], lens.ctypes.data, dsts.ctypes.data,
-        d_cap, out_lens.ctypes.data, errs.ctypes.data, n, _threads(threads),
-    )
+    decompress_batch_into(srcs, lens, dsts, out_lens, errs, threads)
     outs = []
     for i, b in enumerate(blocks):
         if seq[i]:
             outs.append(decompress(b))
             continue
-        if errs[i, 0]:
-            e = _Error()
-            e.code, e.a, e.b, e.c = (int(v) for v in errs[i])
-            _raise(e)
+        _raise_first(errs[i : i + 1])
         outs.append(dsts[i, : int(out_lens[i])].tobytes())
     return outs
 
@@ -371,6 +440,11 @@ def frame_decompress(data: bytes, threads: int = 0) -> bytes:
     decode errors precede that chunk's checksum check)."""
     out = np.empty(max(frame_decompress_len(data), 1), dtype=np.uint8)
     return out[: frame_decompress_into(data, out, threads)].tobytes()
+
+
+def crc32c(data: bytes) -> int:
+    """Unmasked CRC32C (Castagnoli) of ``data``."""
+    return int(_load().stpu_crc32c(data, len(data)))
 
 
 def crc32c_masked(data: bytes) -> int:

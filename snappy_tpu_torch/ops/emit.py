@@ -180,6 +180,29 @@ def emit_bytes_plain(src, idx, out_len):
     return torch.where(ok, val, 0).to(torch.uint8)
 
 
+#: Edge lengths of K6's gather: none, one byte, around a 16-byte store,
+#: around a 1,024-byte group, and the whole 81,920-byte row.
+EDGE_LENS = (0, 1, 15, 16, 17, 1023, 1025, 81920)
+
+
+def edge_batch(out_lens, device, seed: int = 3, src_w: int = 70001):
+    """Inputs of :func:`emit_bytes` on edge rows: ``(src (B, src_w) uint8,
+    idx (B, 81920) int32, out_len (B,) int32)`` with the given ``out_lens``,
+    made on ``device`` from ``seed``. Indices are drawn from ``[-2, src_w +
+    2)``, so some fall outside the row, and every row has -1, ``src_w`` and
+    ``src_w - 1`` at its first three bytes and last two. The width is odd,
+    so rows start at every alignment."""
+    b = len(out_lens)
+    g = torch.Generator(device=device).manual_seed(seed)
+    src = torch.randint(0, 256, (b, src_w), generator=g, device=device, dtype=torch.uint8)
+    idx = torch.randint(-2, src_w + 2, (b, N_GROUPS * GROUP), generator=g, device=device,
+                        dtype=torch.int32)
+    idx[:, :3] = torch.tensor([-1, src_w, src_w - 1], dtype=torch.int32)
+    idx[:, -2:] = torch.tensor([src_w, src_w - 1], dtype=torch.int32)
+    out_len = torch.tensor(list(out_lens), dtype=torch.int32, device=device)
+    return src, idx, out_len
+
+
 def fused_emit_plain(lo_row, base, rows_g, out_len, bp_rows, dlt_rows, src):
     """K5's function as K6's two plain halves."""
     idx = shift_idx_plain(lo_row, base, rows_g, out_len, bp_rows, dlt_rows)

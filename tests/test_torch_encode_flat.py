@@ -185,6 +185,19 @@ def test_split_emission_matches_pallas(case):
         np.testing.assert_array_equal(g.numpy(), w)
 
 
+@pytest.mark.parametrize("out_len", emit.EDGE_LENS)
+def test_emit_bytes_on_edge_rows_equals_numpy(out_len):
+    """The card tests' edge rows (``emit.edge_batch``) on the CPU: each byte
+    below ``out_len`` is its source byte, or 0 where the index leaves the
+    row (-1, ``src_w``, and the random ones outside); 0 from ``out_len``."""
+    src, idx, olen = emit.edge_batch([out_len, 81920 - out_len], "cpu")
+    s, ix = src.numpy(), idx.numpy().astype(np.int64)
+    assert (ix[:, :3] == [-1, s.shape[1], s.shape[1] - 1]).all()
+    ok = (ix >= 0) & (ix < s.shape[1]) & (np.arange(ix.shape[1]) < olen.numpy()[:, None])
+    want = np.where(ok, np.take_along_axis(s, np.clip(ix, 0, s.shape[1] - 1), 1), 0)
+    np.testing.assert_array_equal(emit.emit_bytes(src, idx, olen).numpy(), want)
+
+
 def test_plain_windowed_sum_needs_no_sorted_window():
     """The plain step sum is literal: unsorted breakpoints give what the
     windowed sum gives, not what a prefix search would."""

@@ -22,8 +22,8 @@ from snappy_tpu_torch.ops import (
     replay, resolve,
 )
 from torch_vectors import (
-    CORRUPT, collision_rows, copy2, edge_rows, fallback_row, k9_planes, literal, overlap_rows,
-    random_ops, raw_body, resolve_cases, scan_batch, wide_stream,
+    CORRUPT, collision_rows, copy2, edge_rows, fallback_row,
+    k9_planes, literal, overlap_rows, random_ops, raw_body, resolve_cases, scan_batch, wide_stream,
 )
 
 pytestmark = pytest.mark.gpu
@@ -495,6 +495,69 @@ def test_emit_kernels_on_one_live_row_among_padding(dev):
     ref_out, ref_len = encode_flat.records_to_bytes(bt, lt, *rec)
     assert torch.equal(out[:, : encode_flat.OUT_W], ref_out) and torch.equal(plan[3], ref_len)
     assert not out[2, olen:].any() and not out[[0, 1, 3, 4]].any()
+
+
+@pytest.mark.parametrize("out_len", emit.EDGE_LENS)
+def test_emit_bytes_on_one_edge_row(dev, out_len):
+    """K6's gather on a batch of one row: a thread's 16 bytes cut by
+    ``out_len`` at every edge, indices -1, ``src_w`` and ``src_w - 1``."""
+    src, idx, olen = emit.edge_batch([out_len], dev)
+    got = emit.emit_bytes(src, idx, olen)
+    assert torch.equal(got, emit.emit_bytes_plain(src, idx, olen))
+    assert not got[0, out_len:].any()
+
+
+def test_emit_bytes_on_2049_edge_rows(dev):
+    lens = [emit.EDGE_LENS[i % len(emit.EDGE_LENS)] if i % 3 else 81920 * (i % 5) // 4
+            for i in range(2049)]
+    src, idx, olen = emit.edge_batch(lens, dev, seed=9)
+    before = emit.entry_launches["emit_bytes"]
+    got = emit.emit_bytes(src, idx, olen)
+    torch.cuda.synchronize()
+    assert emit.entry_launches["emit_bytes"] == before + 1
+    assert torch.equal(got, emit.emit_bytes_plain(src, idx, olen))
+
+
+def test_emit_bytes_equals_fused_emit_on_the_compress_group(dev):
+    """The 64 MiB + 5,000-byte corpus stream's 1,025 blocks in 2,048 rows,
+    as ``compress(profile="fast")`` batches them: K6's two launches give
+    K5's bytes and the plain version's."""
+    from conftest import CORPUS_FILES
+
+    parts, total = [], 0
+    while total < (64 << 20) + 5000:
+        for name in CORPUS_FILES:
+            parts.append(load_corpus(name))
+            total += len(parts[-1])
+    blocks, lens = packing.blocks_of(b"".join(parts)[: (64 << 20) + 5000])
+    rows = packing.pad_to_bucket(len(lens), 1)
+    bt = torch.zeros((rows, 65536), dtype=torch.uint8, device=dev)
+    lt = torch.zeros(rows, dtype=torch.int32, device=dev)
+    bt[: len(lens)], lt[: len(lens)] = torch.from_numpy(blocks).to(dev), torch.from_numpy(lens).to(dev)
+    jw, _ = encode_flat.prepass(bt, lt)
+    rec = parse.parse_blocks(lt, jw, bt)
+    *plan, src, ovf = encode_flat._fused_plan(bt, lt, *rec)
+    del bt, jw, rec
+    idx = emit.shift_idx(*plan)
+    got = emit.emit_bytes(src, idx, plan[3])
+    assert torch.equal(got, emit.fused_emit(*plan, src))
+    assert torch.equal(got, emit.emit_bytes_plain(src, idx, plan[3])) and not ovf.any()
+
+
+def test_gpu_pipeline_on_the_card_matches_the_cpu_run(dev):
+    """``examples.gpu_pipeline`` at 512 KiB shards: K2 on one card once a
+    shard gives the CPU run's rows; the losses and the table agree within
+    rtol 1e-5 (float32 sums in another order)."""
+    from snappy_tpu_torch.examples import gpu_pipeline
+
+    before = decode_flat.layout_launches[1]
+    l_card, p_card, r_card = gpu_pipeline.run("cuda", 512 << 10, mesh_size=1)
+    assert decode_flat.layout_launches[1] == before + 2
+    l_cpu, p_cpu, r_cpu = gpu_pipeline.run("cpu", 512 << 10)
+    for (rows_a, n_a), (rows_b, n_b) in zip(r_card, r_cpu):
+        assert torch.equal(rows_a, rows_b) and torch.equal(n_a, n_b)
+    np.testing.assert_allclose(l_card, l_cpu, rtol=1e-5, atol=0)
+    torch.testing.assert_close(p_card, p_cpu, rtol=1e-5, atol=1e-8)
 
 
 def test_compress_on_the_card(dev):

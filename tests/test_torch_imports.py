@@ -21,6 +21,11 @@ PORT_MODULES = [
     "snappy_tpu_torch.cli.szip",
     "snappy_tpu_torch.config",
     "snappy_tpu_torch.engine",
+    "snappy_tpu_torch.examples",
+    "snappy_tpu_torch.examples.compress",
+    "snappy_tpu_torch.examples.compress_escaped",
+    "snappy_tpu_torch.examples.decompress",
+    "snappy_tpu_torch.examples.gpu_pipeline",
     "snappy_tpu_torch.error",
     "snappy_tpu_torch.format.reference",
     "snappy_tpu_torch.frame",
@@ -75,18 +80,24 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "flat_gather_probe.py", "encode_records_probe.py",
                                     "resolve_parse_probe.py", "crc_emit_probe.py",
-                                    "replay_resolve_probe.py"])
+                                    "replay_resolve_probe.py", "emit_bytes_probe.py",
+                                    "multi_card_probe.py"])
 def test_card_scripts_import_no_jax_and_nothing_of_the_jax_package(script):
     """The scripts that run on the card (where there is no JAX) import
-    neither JAX nor the JAX package, at any depth of their code."""
+    neither JAX nor the JAX package, at any depth of their code: besides the
+    standard library, numpy and torch, only the port (whose import graph the
+    test above walks) and ``chip_smoke`` (a case of this test), and no test
+    helper."""
     import ast
 
     with open(os.path.join(REPO, script)) as f:
         tree = ast.parse(f.read())
     modules = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
     modules += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
-    assert "snappy_tpu_torch" in {m.split(".")[0] for m in modules}
+    tops = {m.split(".")[0] for m in modules}
+    assert "snappy_tpu_torch" in tops
     assert [m for m in modules if _foreign(m)] == []
+    assert tops - set(sys.stdlib_module_names) <= {"numpy", "torch", "snappy_tpu_torch", "chip_smoke"}
 
 
 @pytest.mark.parametrize("entry", ["decompress", "decompress_frame", "compress"])
@@ -223,7 +234,37 @@ def test_public_surface():
     import snappy_tpu_torch
 
     assert set(snappy_tpu_torch.__all__) == {
-        "compress", "decompress", "decompress_frame", "engine", "error", "raw", "read",
-        "write", "Config", "configure", "get_config",
+        "compress", "decompress", "decompress_frame", "engine", "error", "SnappyError", "raw",
+        "read", "write", "Config", "configure", "get_config", "set_config", "__version__",
     }
+    assert all(hasattr(snappy_tpu_torch, n) for n in snappy_tpu_torch.__all__)
     assert snappy_tpu_torch.Config().device == "cuda"
+
+
+def test_surface_agrees_with_the_jax_package():
+    """The JAX package's ``__all__`` and the names it loads on first access
+    are the port's too (the port adds its three entry points and
+    ``engine``); each lazy name gives the port's module of that name, loaded
+    in a fresh process only when it is first touched."""
+    import snappy_tpu
+    import snappy_tpu_torch
+
+    assert set(snappy_tpu_torch.__all__) == set(snappy_tpu.__all__) | {
+        "compress", "decompress", "decompress_frame", "engine"}
+    assert snappy_tpu_torch.__version__ == snappy_tpu.__version__
+    lazy = ("raw", "read", "write", "frame", "format", "ops", "parallel")
+    for name in lazy:
+        assert getattr(snappy_tpu, name).__name__ == f"snappy_tpu.{name}"
+        assert getattr(snappy_tpu_torch, name).__name__ == f"snappy_tpu_torch.{name}"
+    with pytest.raises(AttributeError):
+        snappy_tpu_torch.no_such_module  # noqa: B018
+    code = (
+        "import sys, snappy_tpu_torch as st\n"
+        "assert 'snappy_tpu_torch.parallel' not in sys.modules\n"
+        "st.set_config(threads=2); assert st.get_config().threads == 2\n"
+        "print(st.parallel.make_mesh(['cpu']).size)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         check=True, capture_output=True, text=True).stdout
+    assert out.strip() == "1"
