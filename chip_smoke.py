@@ -120,10 +120,20 @@ cuda:0]``: exact compress (K7) and flat compress (K4, K5) of the stream's
 blocks, which must assemble the unsharded calls' streams; the frame
 chunks' bodies decoded from the host flatten (K2), by replay (K3) and by
 chain resolution (K8, K2), each row the host codec's; the blocks framed
-as chunks (K1, K7), which must be the host codec's frames. Each path
-launches exactly its kernels (counts set to 0 before it, read after), a
-mesh of two gives the one-device mesh's rows, and one ``{"sharded": ...}``
-line prints each path's cold and warm seconds and GB/s. ``multihost``
+as chunks (K1, K7), which must be the host codec's frames. The inputs
+come from host memory; each entry runs its shards at once, one thread a
+mesh entry, and returns ``Sharded`` outputs, each shard on its entry's
+device. Each path launches exactly its kernels, once a mesh entry (counts
+set to 0 before it, read after), a mesh of two gives the one-device mesh's
+rows, and every card is synchronized before each clock read. Each path is
+timed again with its inputs placed on the mesh beforehand, and on each
+mesh one warm call of each (from host memory and from placed inputs) runs
+under ``utils.profiling.device_trace``: on the mesh of two its copies on
+the card and its concatenation kernels must be twice the one-device
+mesh's (each shard's own), so nothing joins the shards. One
+``{"sharded": ...}`` line prints each path's warm seconds both ways, its
+shards' devices and its traces' copies, concatenations and cross-card
+kernel overlap. ``multihost``
 then joins a world of one rank from the environment (``MASTER_ADDR``,
 ``RANK=0``, ``WORLD_SIZE=1``), where ``initialize`` must choose NCCL:
 ``compress_segments`` on the 1,024 whole blocks (K7) gives rows whose
@@ -151,8 +161,8 @@ pipeline (``examples.gpu_pipeline.run``) runs at 512 KiB shards on one
 card (K2 once a shard) and on four CPU entries, whose rows must be equal
 and losses and table within rtol 1e-5; then at two shards of 32 MiB on
 ``make_mesh()``, printing each step's host seconds (walk, flatten), decode
-and step seconds, loss and peak device bytes, with the rows on the card
-when the step runs.
+and step seconds, loss and each card's peak device bytes, with each card's
+shard of the rows on that card when the step runs.
 
 It prints one ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Details go to
@@ -352,28 +362,58 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def sync_cards() -> None:
+    """Wait for every card: a sharded path's shards run on several."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
 def warm_runs(fn, reps: int = 3) -> list[float]:
-    """Seconds of ``reps`` calls of ``fn``, each ending in a synchronize."""
+    """Seconds of ``reps`` calls of ``fn``, each ending in a synchronize of
+    every card."""
     out = []
     for _ in range(reps):
-        torch.cuda.synchronize()
+        sync_cards()
         t0 = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        sync_cards()
         out.append(time.perf_counter() - t0)
     return out
 
 
-def assemble(rows: torch.Tensor, lens: torch.Tensor, n: int) -> bytes:
+def host(x) -> np.ndarray:
+    """``x`` in host memory: a ``Sharded`` shard by shard, a tensor, or numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    return x.numpy() if hasattr(x, "shards") else np.asarray(x)
+
+
+def assemble(rows, lens, n: int) -> bytes:
     """The first ``n`` rows' prefixes of their lengths, concatenated."""
-    rows, lens = rows[:n].cpu().numpy(), lens[:n].cpu().numpy()
+    rows, lens = host(rows)[:n], host(lens)[:n]
     return b"".join(rows[i, : lens[i]].tobytes() for i in range(n))
 
 
-def rows_equal(dst: torch.Tensor, want: list[bytes]) -> bool:
+def rows_equal(dst, want: list[bytes]) -> bool:
     """Each of the first ``len(want)`` rows of ``dst`` starts with its bytes."""
-    d = dst[: len(want)].cpu().numpy()
+    d = host(dst)[: len(want)]
     return all(d[i, : len(w)].tobytes() == w for i, w in enumerate(want))
+
+
+def union(events: list[dict]) -> list[list[float]]:
+    """The spans ``events`` cover, overlapping ones merged, in time order."""
+    merged = []
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    return merged
+
+
+def busy_us(events: list[dict]) -> float:
+    """Microseconds covered by ``events`` (overlaps counted once)."""
+    return sum(b - a for a, b in union(events))
 
 
 def counts() -> dict:
@@ -409,10 +449,10 @@ def counted_run(by_path: dict, path: str, fn, want: dict):
     ``by_path[path]`` just after; fails unless it launched exactly the
     kernels and counts of ``want``. Returns its result and seconds."""
     reset_counts()
-    torch.cuda.synchronize()
+    sync_cards()
     t0 = time.perf_counter()
     result = fn()
-    torch.cuda.synchronize()
+    sync_cards()
     seconds = time.perf_counter() - t0
     by_path[path] = counts()
     launched = {k: v for k, v in by_path[path].items() if v}
@@ -420,19 +460,69 @@ def counted_run(by_path: dict, path: str, fn, want: dict):
     return result, seconds
 
 
-def sharded_paths(meshes, data, cblocks, clens, dec, want_rows, expect, run_counted):
+def trace_sharded(fn, out_dir: str) -> dict:
+    """One call of ``fn`` (a sharded path) under ``utils.profiling.device_trace``:
+    its copies by kind, its copies from device memory to device memory on
+    one card (``DtoD``) and from card to card (``PtoP``), its concatenation
+    kernels (``torch.cat``'s ``CatArrayBatchedCopy``, how the entries once
+    joined their shards on the first card), the kernels and kernel time on
+    each card, and the time during which kernels run on two or more cards at
+    once. The trace file is removed after it is read."""
+    import glob
+
+    from snappy_tpu_torch.utils.profiling import (
+        cross_device_overlap_us, device_events, device_to_device_copies, device_trace,
+    )
+
+    subprocess.run(["rm", "-rf", out_dir], check=True)
+    with device_trace(out_dir):
+        fn()
+    (path,) = glob.glob(os.path.join(out_dir, "trace.*.json"))
+    events = device_events(path)
+    subprocess.run(["rm", "-rf", out_dir], check=True)
+    kernels = [e for e in events if e["cat"] == "kernel"]
+    copies = {}
+    for e in events:
+        if e["cat"] == "gpu_memcpy":
+            copies[e["name"]] = copies.get(e["name"], 0) + 1
+    cards = sorted({e["device"] for e in kernels})
+    lo = min((e["ts"] for e in events), default=0.0)
+    hi = max((e["ts"] + e["dur"] for e in events), default=0.0)
+    moves = [e["name"] for e in device_to_device_copies(events)]
+    return {
+        "dtod": sum("DtoD" in n for n in moves), "ptop": sum("PtoP" in n for n in moves),
+        "cat_kernels": sum("CatArrayBatchedCopy" in e["name"] for e in kernels), "copies": copies,
+        "kernels_by_card": {c: sum(e["device"] == c for e in kernels) for c in cards},
+        "kernel_busy_us_by_card": {c: busy_us([e for e in kernels if e["device"] == c]) for c in cards},
+        "kernel_overlap_us": cross_device_overlap_us(events), "device_window_us": hi - lo,
+    }
+
+
+def sharded_paths(meshes, data, cblocks, clens, dec, want_rows, expect, run_counted,
+                  trace_dir=None):
     """The sharded entries on each mesh of ``meshes`` (lists of devices, the
-    first of one device): exact and flat compress of the stream's blocks,
-    the frame chunks' bodies decoded by the flat gather from the host
-    flatten, by the replay kernel and by chain resolution, and the blocks
-    framed as chunks. Each
-    path's output equals the unsharded port call's (``expect``: the exact
-    and fast streams and the frame), each decode the host codec's rows, and
-    a wider mesh gives the first mesh's rows.
-    ``run_counted(path, fn, kernels)`` runs a path with the counts reset
-    and checks its launches. Returns each path's times."""
+    first of one device), their inputs in host memory: exact and flat
+    compress of the stream's blocks, the frame chunks' bodies decoded by the
+    flat gather from the host flatten, by the replay kernel and by chain
+    resolution, and the blocks framed as chunks. Each path's outputs are
+    ``Sharded`` with shard ``i`` on the mesh's device ``i``; each equals the
+    unsharded port call's (``expect``: the exact and fast streams and the
+    frame), each decode the host codec's rows, and a wider mesh gives the
+    first mesh's rows. ``run_counted(path, fn, kernels)`` runs a path with
+    the counts reset and checks its launches: each kernel once a mesh entry.
+    Warm seconds are taken from host memory (``warm_s``) and with the inputs
+    placed on the mesh beforehand as ``Sharded``, as a chain of entries
+    leaves them (``resident_warm_s``; the flat path then runs the gather
+    alone, on the host flatten's indices). With ``trace_dir`` given, one
+    warm call of each path from host memory and one from placed inputs are
+    traced on every mesh (:func:`trace_sharded`): on a wider mesh no copy
+    may go from card to card, and the copies on a card and the
+    concatenation kernels must be the one-device mesh's times the mesh's
+    size, those each shard's own function makes: nothing joins the shards.
+    Returns each path's times and trace readings."""
+    from snappy_tpu_torch import native
     from snappy_tpu_torch.format.varint import write_varu64
-    from snappy_tpu_torch.parallel import make_mesh, sharded
+    from snappy_tpu_torch.parallel import make_mesh, map_shards, sharded
 
     srcs, src_lens, declens, recs, nops = dec
     n_blocks, n_rows = len(clens), len(declens)
@@ -445,54 +535,101 @@ def sharded_paths(meshes, data, cblocks, clens, dec, want_rows, expect, run_coun
         def padded(x):
             return sharded.pad_batch(np.asarray(x), np.zeros(len(x), np.int32), m)[0]
 
-        home = mesh.devices[0]
-        blocks_t, lens_t = (torch.from_numpy(padded(x)).to(home) for x in (cblocks, clens))
-        srcs_p, recs_p, s_lens, d_lens, n_ops = map(padded, (srcs, recs, src_lens, declens, nops))
-        srcs_t = torch.from_numpy(srcs_p).to(home)
+        on_host = {"blocks": padded(cblocks), "lens": padded(clens)}
+        on_host.update(zip(("srcs", "recs", "s_lens", "d_lens", "nops"),
+                           map(padded, (srcs, recs, src_lens, declens, nops))))
+        idx, tmeta, fallb, errs, _ = native.flatten_idx_batch(
+            on_host["srcs"], on_host["s_lens"].astype(np.uint64),
+            on_host["d_lens"].astype(np.uint64), 65536, layout=1)
+        on_host.update(idx=idx.view(np.int16), tmeta=tmeta)
+
+        def flat(a):
+            if a is on_host:
+                return sharded.sharded_decode_flat_host(mesh, a["srcs"], a["s_lens"], a["d_lens"], 65536)
+            return sharded.sharded_decode_streams_flat(
+                mesh, a["srcs"], a["idx"], a["tmeta"], a["d_lens"], 65536), errs, fallb
+
         paths = {
             "compress": (
-                lambda: sharded.sharded_compress_blocks(mesh, blocks_t, lens_t),
+                lambda a: sharded.sharded_compress_blocks(mesh, a["blocks"], a["lens"]),
                 {"encode": m}, len(data),
                 lambda r: write_varu64(len(data)) + assemble(*r, n_blocks) == expect["exact"]),
             "compress_flat": (
-                lambda: sharded.sharded_compress_blocks_flat(mesh, blocks_t, lens_t),
+                lambda a: sharded.sharded_compress_blocks_flat(mesh, a["blocks"], a["lens"]),
                 {"parse": m, "fused_emit": m}, len(data),
-                lambda r: not r[2][:n_blocks].any()
+                lambda r: not host(r[2])[:n_blocks].any()
                 and write_varu64(len(data)) + assemble(r[0], r[1], n_blocks) == expect["fast"]),
             "frame_chunks": (
-                lambda: sharded.sharded_encode_frame_chunks(mesh, blocks_t, lens_t),
+                lambda a: sharded.sharded_encode_frame_chunks(mesh, a["blocks"], a["lens"]),
                 {"crc32c": m, "encode": m}, len(data),
                 lambda r: b"\xff\x06\x00\x00sNaPpY" + assemble(*r, n_blocks) == expect["frame"]),
             "decode_flat_host": (
-                lambda: sharded.sharded_decode_flat_host(mesh, srcs_p, s_lens, d_lens, 65536),
-                {"flat_gather[layout=1]": m}, out_bytes,
+                flat, {"flat_gather[layout=1]": m}, out_bytes,
                 lambda r: not r[1][:n_rows].any() and not r[2][:n_rows].any()
                 and rows_equal(r[0], want_rows)),
             "decode_replay": (
-                lambda: sharded.sharded_decode_streams_replay(mesh, srcs_t, s_lens, d_lens, 65536),
+                lambda a: sharded.sharded_decode_streams_replay(
+                    mesh, a["srcs"], a["s_lens"], a["d_lens"], 65536),
                 {"replay": m}, out_bytes,
-                lambda r: not r[1][:n_rows].any() and rows_equal(r[0], want_rows)),
+                lambda r: not host(r[1])[:n_rows].any() and rows_equal(r[0], want_rows)),
             "decode_resolve": (
-                lambda: sharded.sharded_decode_resolve(mesh, srcs_t, recs_p, n_ops, d_lens, 65536),
+                lambda a: sharded.sharded_decode_resolve(
+                    mesh, a["srcs"], a["recs"], a["nops"], a["d_lens"], 65536),
                 {"resolve_fh": m, "flat_gather[layout=1]": m}, out_bytes,
-                lambda r: not r[1][:n_rows].any() and rows_equal(r[0], want_rows)),
+                lambda r: not host(r[1])[:n_rows].any() and rows_equal(r[0], want_rows)),
         }
         for name, (fn, kernels, nbytes, ok) in paths.items():
             path = f"sharded_{name}[{m}]"
-            result, cold = run_counted(path, fn, kernels)
+            result, cold = run_counted(path, lambda: fn(on_host), kernels)
+            placed = [[str(t.device) for t in x.shards] for x in result if hasattr(x, "shards")]
+            check(placed and all(p == [str(d) for d in mesh.devices] for p in placed),
+                  f"the {path} path's shards lie on {placed}, not on {mesh.devices}")
             check(ok(result), f"the {path} path's output differs from the unsharded call's")
+            rows = host(result[0])
             if name not in firsts:
-                firsts[name] = result[0]
+                firsts[name] = rows
             else:  # a wider mesh gives the first mesh's rows, byte for byte
-                k = min(len(result[0]), len(firsts[name]))
-                check(torch.equal(result[0][:k], firsts[name][:k]),
+                k = min(len(rows), len(firsts[name]))
+                check(np.array_equal(rows[:k], firsts[name][:k]),
                       f"the {path} path's rows differ from the one-device mesh's")
-            del result
-            warm = warm_runs(fn)
+            del result, rows
+            warm = warm_runs(lambda: fn(on_host))
             times[path] = {"cold_s": cold, "warm_s": warm,
-                           "warm_GBps": [nbytes / t / 1e9 for t in warm], "bytes": nbytes}
-        del blocks_t, lens_t, srcs_t
+                           "warm_GBps": [nbytes / t / 1e9 for t in warm], "bytes": nbytes,
+                           "shards_on": placed[0]}
+        # The same paths with their inputs placed on the mesh beforehand.
+        resident = {k: map_shards(mesh, lambda t: t, v) for k, v in on_host.items()}
+        for name, (fn, _, nbytes, ok) in paths.items():
+            path = f"sharded_{name}[{m}]"
+            check(ok(fn(resident)), f"the {path} path from placed inputs differs")
+            warm = warm_runs(lambda: fn(resident))
+            times[path].update(resident_warm_s=warm,
+                               resident_warm_GBps=[nbytes / t / 1e9 for t in warm])
+            if trace_dir:
+                traced = {src: trace_sharded(lambda: fn(a), os.path.join(trace_dir, f"{name}_{m}"))
+                          for src, a in (("host", on_host), ("resident", resident))}
+                times[path]["trace"] = traced
+                one = times[f"sharded_{name}[1]"]["trace"]
+                check(all(t["ptop"] == 0 and t[k] == m * one[src][k]
+                          for src, t in traced.items() for k in ("dtod", "cat_kernels")),
+                      f"the {path} path moved rows between its shards: {traced}, one device: {one}")
+        del resident
     return times
+
+
+def sharded_summary(times: dict) -> dict:
+    """Each sharded path's warm seconds from host memory and from placed
+    inputs, its shards' devices, and its traces' device-to-device copies and
+    cross-card kernel overlap (microseconds)."""
+    out = {}
+    for path, t in times.items():
+        out[path] = {"warm_s": t["warm_s"], "resident_warm_s": t["resident_warm_s"],
+                     "shards_on": t["shards_on"]}
+        for src, tr in t.get("trace", {}).items():
+            out[path][f"{src}_trace"] = {
+                k: tr[k] for k in ("dtod", "ptop", "cat_kernels", "kernel_overlap_us",
+                                   "kernel_busy_us_by_card", "device_window_us")}
+    return out
 
 
 def nccl_world_of_one(dev, cblocks, clens, host_64mib, dec, want_rows, run_counted):
@@ -714,8 +851,9 @@ def pipeline_on_the_card(run_counted) -> dict:
     shard) and on four CPU entries: the decoded rows equal, the losses and
     the table within rtol 1e-5 (float32 sums in another order). Then at full
     size on ``make_mesh()``: two shards of 32 MiB (512 chunks each), each
-    step's host, decode and step seconds, loss and peak device bytes; the
-    rows lie on the card when the step runs."""
+    step's host, decode and step seconds, loss and each card's peak device
+    bytes; each card's shard of the rows lies on that card when the step
+    runs (only each card's 256 byte counts move to the first)."""
     from snappy_tpu_torch.examples import gpu_pipeline
 
     (l_card, p_card, r_card), s_card = run_counted(
@@ -733,8 +871,9 @@ def pipeline_on_the_card(run_counted) -> dict:
     n_cards = torch.cuda.device_count()
     _, s_full = run_counted("pipeline_full", lambda: gpu_pipeline.run("cuda", 32 << 20, stats=stats),
                             {"flat_gather[layout=1]": 2 * n_cards})
-    check(all(st["rows_device"].startswith("cuda") for st in stats),
-          f"the step ran on rows that are not on the card: {stats}")
+    cards = [f"cuda:{i}" for i in range(n_cards)]
+    check(all(st["rows_devices"] == cards for st in stats),
+          f"the step's rows do not lie one shard a card on {cards}: {stats}")
     return {"small": {"shard_bytes": 512 << 10, "card_s": s_card, "cpu_s": s_cpu,
                       "losses_card": l_card, "losses_cpu": l_cpu},
             "full": {"shard_bytes": 32 << 20, "cards": n_cards, "seconds": s_full, "steps": stats}}
@@ -772,19 +911,9 @@ def trace_flat_route(fn, out_dir: str):
     lo = min(e["ts"] for e in events)
     hi = max(e["ts"] + e["dur"] for e in events)
 
-    def union(evs):
-        spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in evs)
-        merged = [list(spans[0])]
-        for a, b in spans[1:]:
-            if a <= merged[-1][1]:
-                merged[-1][1] = max(merged[-1][1], b)
-            else:
-                merged.append([a, b])
-        return merged
-
     merged = union(on_dev)
     busy = sum(b - a for a, b in merged)
-    kernel_busy = sum(b - a for a, b in union([e for e in on_dev if e.get("cat") == "kernel"]))
+    kernel_busy = busy_us([e for e in on_dev if e.get("cat") == "kernel"])
     by_name = {}
     for e in on_dev:
         t, c = by_name.get(e["name"], (0.0, 0))
@@ -1714,9 +1843,9 @@ def main() -> int:
     sharded_s = sharded_paths(
         [[card0], [card0, card0]], data, cblocks, clens, dec, want_rows,
         {"exact": results["exact"], "fast": results["compress"], "frame": results["writer"]},
-        run_counted)
+        run_counted, os.path.join(HERE, "build", "sharded_traces"))
     report["sharded"] = sharded_s
-    print(json.dumps({"sharded": sharded_s}))
+    print(json.dumps({"sharded": sharded_summary(sharded_s)}))
     host_64mib = native.compress(data[: 1024 * 65536])
     report["nccl_world_of_one"] = nccl_world_of_one(
         card0, cblocks, clens, host_64mib, dec, want_rows, run_counted)

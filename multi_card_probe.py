@@ -8,11 +8,22 @@ Run on a host with two or more cards (it also runs on one)::
    spans every card, after the one-card mesh ``[cuda:0]``: exact and flat
    compress of a 64 MiB + 5,000-byte corpus stream, its frame chunks'
    bodies decoded from the host flatten, by replay and by chain
-   resolution, and its blocks framed as chunks (``chip_smoke.sharded_paths``).
-   Each path launches each of its kernels once a card, gives the host
-   codec's bytes, and gives the one-card mesh's rows. A kernel launched
-   while another card is current fails, so every card's shard must run
-   with its own card current.
+   resolution, and its blocks framed as chunks (``chip_smoke.sharded_paths``),
+   with inputs from host memory and again placed on the mesh beforehand.
+   Each path runs its shards at once, one thread a card, launches each of
+   its kernels once a card, leaves shard ``i`` on ``cuda:i``, gives the
+   host codec's bytes, and gives the one-card mesh's rows. A kernel
+   launched while another card is current fails, so every card's shard
+   must run with its own card current. One warm call of each path (both
+   ways, on each mesh) runs under ``utils.profiling.device_trace``: it
+   must hold no card-to-card copy, and no more copies on a card or
+   concatenation kernels than each shard's own function makes (the
+   one-card mesh's, once a card), so nothing joins the shards; the time
+   during which kernels run on two or more cards at once is printed beside
+   each card's kernel time. Then the cost of the threads alone
+   (``map_shards`` of the identity on placed rows, 20 calls a mesh), and
+   every path timed again with the interpreter's switch interval at
+   0.1 ms (``sys.setswitchinterval``, restored after), against 5 ms.
 2. ``multihost`` under ``torchrun --standalone --nproc-per-node <cards>``
    (one rank a card, NCCL): ``compress_segments`` of 1,024 blocks, each
    rank's rows written at its offsets into one file, which must be the
@@ -172,7 +183,7 @@ def main() -> int:
         report["cards"] = cards
         data = chip_smoke.corpus_stream(chip_smoke.STREAM_BYTES)
         report["mesh"] = sharded_on_every_card(chip_smoke, data)
-        print(json.dumps({"mesh": report["mesh"]}))
+        print(json.dumps({"mesh": {k: v for k, v in report["mesh"].items() if k != "times"}}))
     per_rank = args.blocks // ranks
     host_stream = native.compress(data[: ranks * per_rank * 65536])
     report["torchrun"] = torchrun_segments(data, host_stream, ranks, per_rank, args.cpu)
@@ -192,7 +203,7 @@ def sharded_on_every_card(chip_smoke, data: bytes) -> dict:
     from snappy_tpu_torch import native
     from snappy_tpu_torch.format.varint import write_varu64
     from snappy_tpu_torch.ops import api, packing
-    from snappy_tpu_torch.parallel import make_mesh
+    from snappy_tpu_torch.parallel import make_mesh, map_shards
 
     frame = native.frame_compress(data)
     chunks = chip_smoke.compressed_chunks(frame)
@@ -215,10 +226,32 @@ def sharded_on_every_card(chip_smoke, data: bytes) -> dict:
         torch.cuda.reset_peak_memory_stats(i)
     times = chip_smoke.sharded_paths(
         [[torch.device("cuda", 0)], list(mesh.devices)], data, cblocks, clens, dec, want_rows,
-        expect, functools.partial(chip_smoke.counted_run, by_path))
+        expect, functools.partial(chip_smoke.counted_run, by_path),
+        os.path.join(HERE, "build", "multi_card_traces"))
     launches = {path: {k: v for k, v in c.items() if v} for path, c in by_path.items()}
+    peak = [torch.cuda.max_memory_allocated(i) for i in range(mesh.size)]
+    # What the threads cost with no work: map_shards of the identity on
+    # placed rows. Then the paths again with the interpreter switching
+    # threads every 0.1 ms instead of every 5 ms: how long the shards' threads
+    # wait on each other for the interpreter lock.
+    overhead = {}
+    for devices in ([torch.device("cuda", 0)], list(mesh.devices)):
+        m = make_mesh(devices)
+        x = map_shards(m, lambda t: t, np.zeros((8 * m.size, 64), np.uint8))
+        overhead[m.size] = chip_smoke.warm_runs(lambda: map_shards(m, lambda t: t, x), reps=20)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-4)
+    try:
+        fast_switch = chip_smoke.sharded_paths(
+            [[torch.device("cuda", 0)], list(mesh.devices)], data, cblocks, clens, dec, want_rows,
+            expect, functools.partial(chip_smoke.counted_run, {}))
+    finally:
+        sys.setswitchinterval(interval)
     return {"devices": [str(d) for d in mesh.devices], "launches": launches, "times": times,
-            "peak_bytes_by_card": [torch.cuda.max_memory_allocated(i) for i in range(mesh.size)]}
+            "summary": chip_smoke.sharded_summary(times), "peak_bytes_by_card": peak,
+            "map_shards_overhead_s": overhead,
+            "switch_interval_1e-4": {p: {"warm_s": t["warm_s"], "resident_warm_s": t["resident_warm_s"]}
+                                     for p, t in fast_switch.items()}}
 
 
 if __name__ == "__main__":

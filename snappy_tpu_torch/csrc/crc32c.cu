@@ -44,8 +44,10 @@
 //   shifts it. The len % 16 tail bytes are byte steps by one thread, which
 //   for len < 16 start from 0xFFFFFFFF.
 
-#include <cstdint>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <mutex>
 
 namespace {
 
@@ -232,18 +234,24 @@ crc32c_rows_kernel(const uint8_t* __restrict__ rows, int64_t n_rows, int64_t str
   }
 }
 
-// One CTA an SM, with its shared memory granted once a device.
+// One CTA an SM, with its shared memory granted once a device. The shards
+// of a sharded entry launch from one host thread a card, and two entries of
+// a mesh may share a card: std::call_once makes the first caller on a card
+// set it up while the others wait, so no thread reads a half-written count.
 int grid_for(int64_t n_rows) {
-  static int sms[64];
+  constexpr int kMaxDevices = 64;
+  static std::once_flag once[kMaxDevices];
+  static int sms[kMaxDevices];
   int dev = 0;
   cudaGetDevice(&dev);
-  if (dev < 0 || dev >= 64) dev = 0;
-  if (!sms[dev]) {
+  if (dev < 0 || dev >= kMaxDevices) dev = 0;
+  std::call_once(once[dev], [dev] {
     cudaFuncSetAttribute(crc32c_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          kSmemBytes);
-    cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
-    if (sms[dev] <= 0) sms[dev] = 1;
-  }
+    int n = 0;
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    sms[dev] = n > 0 ? n : 1;
+  });
   return static_cast<int>(n_rows < sms[dev] ? n_rows : sms[dev]);
 }
 

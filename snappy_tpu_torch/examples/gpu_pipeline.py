@@ -8,10 +8,14 @@ computation on the card, not as a host preprocessing stage. Per shard:
 2. walk its chunk headers on the host (a few bytes per 64 KiB chunk),
    resolve every compressed chunk's copy chains to per-byte indices (the
    host flatten, one chunk-parallel C++ call), and decode them all in one
-   sharded launch of the flat gather (K2) over the mesh;
-3. the decoded ``(B, 65536)`` uint8 rows are already on the mesh's first
-   card: the train step (a toy byte-embedding model) consumes them there,
-   without a trip through host memory.
+   sharded call of the flat gather (K2): every card copies in and decodes
+   its own shard of the rows at once;
+3. the decoded ``(B, 65536)`` uint8 rows stay sharded over the cards, as
+   the JAX example's stay sharded over its mesh: each card takes the
+   masked byte histogram of its own rows, and only those 256 counts a card
+   go to the first card, where the train step (a toy byte-embedding model:
+   loss, backward, SGD) runs. No row takes a trip through host memory or
+   to another card.
 
 Runs on every card of the host, or, when asked, on a mesh of four CPU
 entries with the hosted tensor decode (the host's op-start bitmaps)::
@@ -83,6 +87,16 @@ def make_shards(shard_bytes: int):
     return shards
 
 
+def byte_counts(tokens: torch.Tensor, nbytes: torch.Tensor) -> torch.Tensor:
+    """The masked histogram of ``(B, 65536)`` uint8 rows: ``(256,)`` float32,
+    ``count[v]`` the positions below each row's length ``nbytes`` that hold
+    ``v``, on the rows' device. Counts stay exact in float32 below 2**24 a
+    value."""
+    mask = (torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+            < nbytes[:, None]).to(torch.float32)
+    return torch.bincount(tokens.flatten(), weights=mask.flatten(), minlength=256)
+
+
 class ByteEmbedding(nn.Module):
     """Toy byte-embedding regression: a ``(256, 16)`` float32 table from
     ``np.random.default_rng(seed)`` times 0.01; the loss is the masked mean
@@ -95,28 +109,26 @@ class ByteEmbedding(nn.Module):
         self.table = nn.Parameter(
             torch.from_numpy(np.asarray(rng.standard_normal((256, 16)) * 0.01, np.float32)))
 
-    def forward(self, tokens: torch.Tensor, nbytes: torch.Tensor) -> torch.Tensor:
-        # tokens: (B, 65536) uint8; the mask drops each row's padding. The
-        # masked sum over positions of h[token]^2, h the table's row means,
-        # is taken grouped by byte value: count[v] * h[v]^2 summed over the
-        # 256 values, with the counts a masked histogram of the rows. The
-        # same sum as the JAX example's, but autograd flows through 256 row
-        # means: the backward of a gather at every position would accumulate
-        # millions of values into 256 table rows.
-        mask = (torch.arange(tokens.shape[1], device=tokens.device)[None, :]
-                < nbytes[:, None]).to(torch.float32)
-        count = torch.bincount(tokens.flatten(), weights=mask.flatten(), minlength=256)
+    def forward(self, counts: torch.Tensor) -> torch.Tensor:
+        # counts: the rows' masked byte histogram (byte_counts). The masked
+        # sum over positions of h[token]^2, h the table's row means, is taken
+        # grouped by byte value: count[v] * h[v]^2 summed over the 256
+        # values. The same sum as the JAX example's, but autograd flows
+        # through 256 row means: the backward of a gather at every position
+        # would accumulate millions of values into 256 table rows.
         h = self.table.mean(dim=-1)
-        return torch.sum(count * h * h) / torch.clamp(count.sum(), min=1.0)
+        return torch.sum(counts * h * h) / torch.clamp(counts.sum(), min=1.0)
 
 
 def _pad(a: np.ndarray, rows: int) -> np.ndarray:
     return np.pad(a, [(0, rows - a.shape[0])] + [(0, 0)] * (a.ndim - 1))
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _sync(mesh) -> None:
+    """Wait for every card of ``mesh``."""
+    for dev in dict.fromkeys(mesh.devices):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
 def run(device, shard_bytes: int, mesh_size: int | None = None, stats: list | None = None):
@@ -130,11 +142,13 @@ def run(device, shard_bytes: int, mesh_size: int | None = None, stats: list | No
     int32)`` on the CPU, fetched after its step. ``stats``, when given, gets
     one dict a step: host seconds of the walk and of the flatten or scan,
     seconds of the decode and of the step (each ending in a synchronize),
-    the loss, the rows' device and the peak device bytes."""
+    the loss, each shard's device and each card's peak device bytes."""
     from .. import native
     from ..ops.packing import batch_streams, pad_to_bucket
     from ..parallel import make_mesh
-    from ..parallel.sharded import sharded_decode_streams_flat, sharded_decode_streams_hosted
+    from ..parallel.sharded import (
+        map_shards, sharded_decode_streams_flat, sharded_decode_streams_hosted,
+    )
 
     device = torch.device(device)
     if device.type == "cuda":
@@ -145,12 +159,14 @@ def run(device, shard_bytes: int, mesh_size: int | None = None, stats: list | No
     else:
         raise ValueError(f"unsupported device {device}")
     home = mesh.devices[0]
+    cards = [d for d in dict.fromkeys(mesh.devices) if d.type == "cuda"]
     model = ByteEmbedding().to(home)
     opt = torch.optim.SGD(model.parameters(), lr=0.1)
     losses, rows = [], []
     for wire, plain in make_shards(shard_bytes):
-        if stats is not None and home.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(home)
+        if stats is not None:
+            for dev in cards:
+                torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         chunks = split_frame(wire)
         # Text shards compress; uncompressed chunks (incompressible data)
@@ -175,32 +191,33 @@ def run(device, shard_bytes: int, mesh_size: int | None = None, stats: list | No
             bits = np.zeros((n, width // 8), np.uint8)
             native.scan_ops_batch(srcs, lens.astype(np.uint64), bits)
         t2 = time.perf_counter()
-        # Pad the batch axis to the mesh size; each shard of rows decodes on
-        # its own device and the rows come back in order on the first.
+        # Pad the batch axis to the mesh size; each device copies in and
+        # decodes its own shard of the rows, which stays there.
         pb = -(-n // mesh.size) * mesh.size
         if home.type == "cuda":
+            out_len = _pad(declens, pb)
             out = sharded_decode_streams_flat(mesh, _pad(srcs, pb), _pad(idxp, pb),
-                                              _pad(tmeta, pb), _pad(declens, pb), D_PAD)
-            out_len = torch.from_numpy(_pad(declens, pb)).to(home)
+                                              _pad(tmeta, pb), out_len, D_PAD)
         else:
             out, errc, out_len = sharded_decode_streams_hosted(
                 mesh, _pad(srcs, pb), _pad(lens, pb), _pad(declens, pb), _pad(bits, pb), D_PAD)
-            if bool((errc[:n] != 0).any()):
+            if errc.numpy()[:n].any():
                 raise SystemExit("corrupt shard")
-        _sync(home)
+        _sync(mesh)
         t3 = time.perf_counter()
-        # `out` is (pb, 65536) uint8 on the mesh's first device: the step
-        # consumes it there.
-        rows_device = out.device
-        loss = model(out, out_len)
+        # `out` is (pb, 65536) uint8, one shard a device: each device takes
+        # the histogram of its own rows, and the 256 counts of each go to the
+        # first device, where the step runs.
+        counts = map_shards(mesh, byte_counts, out, out_len)
+        loss = model(counts.gather(home).view(mesh.size, 256).sum(0))
         opt.zero_grad()
         loss.backward()
         opt.step()
-        _sync(home)
+        _sync(mesh)
         t4 = time.perf_counter()
         losses.append(float(loss.detach()))
-        got = out[:n].cpu()
-        nbytes = out_len[:n].to(torch.int32).cpu()
+        got = out.cpu()[:n]
+        nbytes = torch.from_numpy(np.asarray(out_len, np.int32)[:n])
         # Demo-only verification (a real loop would skip this fetch).
         if b"".join(got[i, : int(nbytes[i])].numpy().tobytes() for i in range(n)) != plain:
             raise SystemExit("decoded bytes != stored bytes")
@@ -208,9 +225,9 @@ def run(device, shard_bytes: int, mesh_size: int | None = None, stats: list | No
         if stats is not None:
             stats.append({
                 "walk_s": t1 - t0, "host_half_s": t2 - t1, "decode_s": t3 - t2,
-                "step_s": t4 - t3, "loss": losses[-1], "rows": n, "rows_device": str(rows_device),
-                "peak_device_bytes": (torch.cuda.max_memory_allocated(home)
-                                      if home.type == "cuda" else None),
+                "step_s": t4 - t3, "loss": losses[-1], "rows": n,
+                "rows_devices": [str(t.device) for t in out.shards],
+                "peak_device_bytes": {str(d): torch.cuda.max_memory_allocated(d) for d in cards},
             })
     return losses, model.table.detach().cpu(), rows
 

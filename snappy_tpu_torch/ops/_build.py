@@ -40,6 +40,7 @@ GXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-fno-exceptions", "-march
 
 _lock = threading.Lock()
 _kernel_libs: dict[str, ctypes.CDLL] = {}
+_count_lock = threading.Lock()
 
 
 def _target(src: Path, cmd: list[str]) -> Path:
@@ -115,6 +116,17 @@ def host_lib(src: Path) -> ctypes.CDLL:
     """Build (once) and load a host C++ source with ``g++``."""
     (path,) = compile_all([(src, ["g++", *GXX_FLAGS])])
     return ctypes.CDLL(str(path))
+
+
+def count(counts, key, n=1) -> None:
+    """``counts[key] += n`` under one lock for the process.
+
+    The kernel wrappers' launch counts (a module's ``globals()``, a dict or
+    a list) and ``ops.api.spans`` are bumped from every shard's thread of a
+    sharded entry at once; a bare ``+=`` reads and writes in two steps and
+    can lose an increment between them."""
+    with _count_lock:
+        counts[key] += n
 
 
 def check(status: int, what: str) -> None:

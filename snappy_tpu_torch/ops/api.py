@@ -63,7 +63,7 @@ from ..format.constants import (
     max_compress_len,
 )
 from ..format.varint import read_varu64, write_varu64
-from . import packing
+from . import _build, packing
 from .crc32c import crc32c_masked_blocks
 from .decode import decode_batch, decode_batch_hosted, decode_crc_batch, decode_crc_batch_hosted
 from .decode_flat import decode_flat
@@ -122,7 +122,8 @@ def _span(name: str, dev: torch.device | None = None):
         t0 = time.perf_counter()
         yield
         dt = time.perf_counter() - t0
-    spans[name] = spans.get(name, 0.0) + dt
+    spans.setdefault(name, 0.0)
+    _build.count(spans, name, dt)
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:

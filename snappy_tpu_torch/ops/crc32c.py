@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -203,13 +204,26 @@ def _kernel():
     return fn
 
 
+_tables_lock = threading.Lock()
+
+
 @functools.cache
+def _tables_on(index: int) -> tuple[int, int, tuple[torch.Tensor, ...]]:
+    dev = torch.device("cuda", index)
+    keep = tuple(torch.from_numpy(np.ascontiguousarray(x).view(np.int32).reshape(-1)).to(dev)
+                 for x in kernel_tables())
+    torch.cuda.synchronize(dev)  # copied in before any stream of any thread reads them
+    return keep[0].data_ptr(), keep[1].data_ptr(), keep
+
+
 def _device_tables(index: int) -> tuple[int, int, tuple[torch.Tensor, ...]]:
     """The kernel's tables as int32 bit patterns on card ``index``: their
-    two pointers, and the tensors that keep them alive."""
-    keep = tuple(torch.from_numpy(np.ascontiguousarray(x).view(np.int32).reshape(-1)).to(
-        torch.device("cuda", index)) for x in kernel_tables())
-    return keep[0].data_ptr(), keep[1].data_ptr(), keep
+    two pointers, and the tensors that keep them alive for the process.
+
+    Built once a card under a lock: the shards of a sharded entry reach
+    here from one thread each, and two of them may share a card."""
+    with _tables_lock:
+        return _tables_on(index)
 
 
 def _crc(rows: torch.Tensor, lengths: torch.Tensor, masked: bool) -> torch.Tensor:
@@ -231,8 +245,7 @@ def _crc(rows: torch.Tensor, lengths: torch.Tensor, masked: bool) -> torch.Tenso
     if b == 0:
         return out
     table, ops, _ = _device_tables(dev.index)
-    global launches
-    launches += 1
+    _build.count(globals(), "launches")
     _build.launch(dev, "crc32c", _kernel(),
                   rows.data_ptr(), b, s, lengths.data_ptr(), table, ops, masked, out.data_ptr())
     return out

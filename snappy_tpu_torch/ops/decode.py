@@ -225,6 +225,20 @@ def hosted_op_mask(opbits: torch.Tensor, src_lens: torch.Tensor, s: int) -> torc
     return (((bits >> (i & 7)) & 1) == 1) & (i < src_lens.to(_I64)[:, None])
 
 
+def decode_block(src, src_len, declen, d_pad: int):
+    """Decode one raw op stream (the bytes after the varint header), the JAX
+    package's ``decode_block``: :func:`decode_batch` of a batch of one.
+
+    ``src``: ``(S,)`` uint8, zero-padded; ``src_len``, ``declen``: ints or
+    0-d tensors. Returns ``(dst (d_pad,) uint8, err int32, total_d int32)``,
+    the last two 0-d tensors.
+    """
+    n = torch.as_tensor(src_len, dtype=torch.int32, device=src.device).reshape(1)
+    d = torch.as_tensor(declen, dtype=torch.int32, device=src.device).reshape(1)
+    dst, err, total = decode_batch(src[None], n, d, d_pad)
+    return dst[0], err[0], total[0]
+
+
 def decode_batch(srcs, src_lens, declens, d_pad: int):
     """Decode ``(B, S)`` uint8 bodies, finding the ops on the device.
 

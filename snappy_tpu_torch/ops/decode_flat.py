@@ -125,9 +125,8 @@ def decode_flat(srcs, idx, tile_meta, declens, d_pad: int, layout: int):
     out = torch.empty((b, d_pad), dtype=torch.uint8, device=srcs.device)
     if b == 0 or d_pad == 0:
         return out
-    global launches
-    launches += 1
-    layout_launches[layout] += 1
+    _build.count(globals(), "launches")
+    _build.count(layout_launches, layout)
     _build.launch(
         srcs.device, "flat_gather", _kernel(),
         srcs.data_ptr(), b, s, idx.data_ptr(), tile_meta.data_ptr(),
@@ -224,7 +223,7 @@ def decode_flat_grouped(srcs, idx, tile_meta, gbuck, declens, d_pad: int, varian
     out = torch.empty((b, d_pad), dtype=torch.uint8, device=srcs.device)
     if b == 0 or d_pad == 0:
         return out
-    grouped_launches[variant] += 1
+    _build.count(grouped_launches, variant)
     _build.launch(
         srcs.device, "flat_grouped", _grouped_kernel(),
         srcs.data_ptr(), b, s, idx.data_ptr(), tile_meta.data_ptr(), gbuck.data_ptr(),

@@ -255,7 +255,7 @@ def _plan_specs(lo_row, bp_rows):
 
 
 def _count(name: str) -> None:
-    entry_launches[name] += 1
+    _build.count(entry_launches, name)
 
 
 def fused_emit(lo_row, base, rows_g, out_len, bp_rows, dlt_rows, src):

@@ -499,8 +499,7 @@ def compress_blocks(blocks, lengths):
         return out, out_len
     if b > 2**31 - 1:
         raise ValueError(f"{b} rows exceed one launch's grid")
-    global launches
-    launches += 1
+    _build.count(globals(), "launches")
     _build.launch(blocks.device, "encode", _kernel(),
                   blocks.data_ptr(), w, lengths.data_ptr(), b, out.data_ptr(), out_len.data_ptr())
     return out, out_len

@@ -180,8 +180,7 @@ def parse_blocks(lens, jw, blocks):
         return rec0, rec1, cnt
     if b > 2**31 - 1:
         raise ValueError(f"{b} rows exceed one launch's grid")
-    global launches
-    launches += 1
+    _build.count(globals(), "launches")
     _build.launch(
         blocks.device, "parse", _kernel(),
         lens.data_ptr(), jw.data_ptr(), blocks.data_ptr(), b,

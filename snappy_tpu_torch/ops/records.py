@@ -145,8 +145,7 @@ def decode_records(srcs, recs, nops, declens, d_pad: int):
     dst = torch.empty((b, d_pad), dtype=torch.uint8, device=srcs.device)
     if b == 0:
         return dst
-    global launches
-    launches += 1
+    _build.count(globals(), "launches")
     _build.launch(
         srcs.device, "records", _kernel(),
         srcs.data_ptr(), b, s, recs.data_ptr(), recs.shape[1], nops.data_ptr(),

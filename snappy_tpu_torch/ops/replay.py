@@ -243,8 +243,7 @@ def decode_replay(srcs, src_lens, declens, d_pad: int):
     errs = torch.empty(b, dtype=torch.int32, device=srcs.device)
     if b == 0:
         return dst, errs
-    global launches
-    launches += 1
+    _build.count(globals(), "launches")
     _build.launch(
         srcs.device, "replay", _kernel(),
         srcs.data_ptr(), b, s, src_lens.data_ptr(), declens.data_ptr(),

@@ -304,7 +304,7 @@ def resolve_fh(startsx, payload, declens, d_pad: int):
         return out
     if b > 65535 or cap == 0:
         raise ValueError(f"{b} rows of {cap} records do not fit one launch")
-    launches["resolve_fh"] += 1
+    _build.count(launches, "resolve_fh")
     _build.launch(
         startsx.device, "resolve_fh", _kernels()[0],
         startsx.data_ptr(), payload.data_ptr(), b, cap, declens.data_ptr(), d_pad, out.data_ptr(),
@@ -331,7 +331,7 @@ def resolve(a0):
         raise ValueError(f"{b} rows exceed one launch's grid")
     if a0.data_ptr() % 16:
         raise ValueError("a0 must start on a 16-byte boundary: the kernel copies it 16 bytes at a time")
-    launches["resolve"] += 1
+    _build.count(launches, "resolve")
     _build.launch(a0.device, "resolve", _kernels()[1],
                   a0.data_ptr(), b, d_pad, MAX_ROUNDS, out.data_ptr())
     return out

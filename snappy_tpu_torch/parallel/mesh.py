@@ -4,9 +4,10 @@ The port of ``snappy_tpu/parallel/mesh.py``. A JAX mesh names the
 devices that hold the shards of an array; here a :class:`Mesh` is the
 same list of ``torch.device``, in block order, and each sharded entry
 runs one shard on each. The mesh has one axis, the independent blocks:
-Snappy has no tensor or pipeline dimension to shard. The JAX module's
-``ParallelConfig`` and ``auto_mesh`` are not ported: nothing reads the
-former, and the latter is a second name for :func:`make_mesh`.
+Snappy has no tensor or pipeline dimension to shard. ``auto_mesh`` and
+``ParallelConfig`` are the JAX module's: a second name for
+:func:`make_mesh`, and its batching policy, which no entry of either
+package reads.
 """
 
 from __future__ import annotations
@@ -43,7 +44,31 @@ def make_mesh(devices=None) -> Mesh:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass the mesh's devices, e.g. [torch.device('cpu')] * 4")
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    devices = tuple(torch.device(d) for d in devices)
+    devices = tuple(_indexed(torch.device(d)) for d in devices)
     if not devices:
         raise ValueError("a mesh needs at least one device")
     return Mesh(devices)
+
+
+def _indexed(dev: torch.device) -> torch.device:
+    """``cuda`` named with no index is the current card, as a tensor placed
+    there reports its device."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def auto_mesh() -> Mesh:
+    """:func:`make_mesh` over every card of this process."""
+    return make_mesh()
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """Host-side batching policy for the device codec paths (the JAX
+    package's, field for field)."""
+
+    #: Blocks per device per launch (trades device memory vs. launch count).
+    blocks_per_device: int = 64
+    #: Streams below this stay on the host fast path (launch-latency bound).
+    min_device_bytes: int = 1 << 18

@@ -164,13 +164,13 @@ def compress_segments(mesh: Mesh, blocks, lengths, fast: bool = False) -> Segmen
             raise ValueError(f"every rank must hold the same number of blocks; the ranks hold "
                              f"{counts.tolist()}")
     out, out_len = sharded_compress_blocks(mesh, blocks, lengths, fast=fast)
-    lens_all = row_lens = out_len.cpu().numpy()
+    lens_all = row_lens = out_len.numpy()
     if mesh.world_size > 1:
-        lens_all = _all_gather(mesh, out_len)
+        lens_all = _all_gather(mesh, out_len.gather())
     ends = np.cumsum(lens_all.astype(np.int64))
     my_start = mesh.rank * b
     return Segments(
-        rows=out.cpu().numpy(),
+        rows=out.numpy(),
         row_lens=row_lens,
         offsets=(ends - lens_all)[my_start : my_start + b],
         total=int(ends[-1]),
@@ -199,4 +199,4 @@ def decode_segments(mesh: Mesh, bodies, src_lens, declens, d_pad: int = 65536):
         dst, errs, _ = sharded_decode_streams_hosted(mesh, bodies, src_lens, declens, bits, d_pad)
     else:
         dst, errs, _ = sharded_decode_streams(mesh, bodies, src_lens, declens, d_pad)
-    return dst.cpu().numpy(), errs.cpu().numpy()
+    return dst.numpy(), errs.numpy()

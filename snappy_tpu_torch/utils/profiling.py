@@ -10,6 +10,7 @@ the host's gaps between launches.
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import sys
 import time
@@ -38,8 +39,10 @@ class Timer:
 
 
 def _sync() -> None:
+    """Wait for every card: a sharded entry's shards run on several."""
     if torch.cuda.is_initialized():
-        torch.cuda.synchronize()
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
 
 
 @contextlib.contextmanager
@@ -64,8 +67,9 @@ def device_trace(logdir: str):
     Chrome trace, ``trace.<pid>.<ns>.json`` (open it with Perfetto or
     ``chrome://tracing``).
 
-    Host activity is always traced, the card's whenever one is present; the
-    block's queued device work is synchronized before the trace stops.
+    Host activity is always traced, the cards' whenever one is present; the
+    block's queued work on every card is synchronized before the trace
+    stops.
     Yields the profiler (``key_averages()`` sums the events by name).
     """
     from torch.profiler import ProfilerActivity, profile
@@ -78,3 +82,38 @@ def device_trace(logdir: str):
         yield prof
         _sync()
     prof.export_chrome_trace(os.path.join(logdir, f"trace.{os.getpid()}.{time.time_ns()}.json"))
+
+
+def device_events(path: str) -> list[dict]:
+    """The device events of a Chrome trace written by :func:`device_trace`:
+    kernels, copies and sets, each ``{"name", "cat", "device", "ts",
+    "dur"}`` (times in microseconds; ``cat`` is ``kernel``, ``gpu_memcpy``
+    or ``gpu_memset``; ``device`` the card's index)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [{"name": e["name"], "cat": e["cat"], "device": e.get("args", {}).get("device"),
+             "ts": e["ts"], "dur": e["dur"]}
+            for e in events if e.get("ph") == "X" and "dur" in e
+            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def device_to_device_copies(events: list[dict]) -> list[dict]:
+    """The copies among ``events`` from device memory to device memory: on
+    one card (``DtoD``) or from card to card (``PtoP``)."""
+    return [e for e in events if e["cat"] == "gpu_memcpy"
+            and ("DtoD" in e["name"] or "PtoP" in e["name"])]
+
+
+def cross_device_overlap_us(events: list[dict], cat: str = "kernel") -> float:
+    """Microseconds during which events of ``cat`` run on two or more cards
+    at once."""
+    edges = sorted((t, step, e["device"]) for e in events if e["cat"] == cat
+                   for t, step in ((e["ts"], 1), (e["ts"] + e["dur"], -1)))
+    running: dict = {}
+    overlap, last = 0.0, None
+    for t, step, dev in edges:
+        if last is not None and sum(1 for n in running.values() if n > 0) >= 2:
+            overlap += t - last
+        running[dev] = running.get(dev, 0) + step
+        last = t
+    return overlap

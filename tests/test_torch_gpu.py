@@ -560,6 +560,74 @@ def test_gpu_pipeline_on_the_card_matches_the_cpu_run(dev):
     torch.testing.assert_close(p_card, p_cpu, rtol=1e-5, atol=1e-8)
 
 
+def test_gpu_pipeline_leaves_each_cards_rows_on_that_card(dev):
+    """The pipeline on every card: each step's rows lie one shard a card, and
+    only each card's 256 byte counts move; the losses are the one-card
+    run's within rtol 1e-5."""
+    from snappy_tpu_torch.examples import gpu_pipeline
+
+    stats = []
+    losses, _, _ = gpu_pipeline.run("cuda", 512 << 10, stats=stats)
+    cards = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    assert [st["rows_devices"] for st in stats] == [cards, cards]
+    assert sorted(stats[0]["peak_device_bytes"]) == cards
+    one, _, _ = gpu_pipeline.run("cuda", 512 << 10, mesh_size=1)
+    np.testing.assert_allclose(losses, one, rtol=1e-5, atol=0)
+
+
+def _sharded_counts():
+    return (encode.launches, replay.launches, decode_flat.layout_launches[1], crc32c.launches)
+
+
+@pytest.mark.parametrize("m", [1, 2])
+def test_sharded_entries_leave_each_shard_on_its_card(dev, m, tmp_path):
+    """The sharded entries on ``[cuda:0] * m`` from host memory: every shard
+    on ``cuda:0``, each kernel launched once a mesh entry, the host codec's
+    bytes; the exact compress's ``Sharded`` rows feed the replay decode in
+    place; and a trace of warm calls holds no device-to-device copy."""
+    import glob
+
+    from snappy_tpu_torch.parallel import Sharded, make_mesh, sharded
+    from snappy_tpu_torch.utils.profiling import (
+        device_events, device_to_device_copies, device_trace,
+    )
+
+    data = b"".join(CHUNKS[:4])
+    blocks, lens = packing.blocks_of(data)
+    mesh = make_mesh([dev] * m)
+    card = [torch.device("cuda", 0)] * m
+
+    c0 = _sharded_counts()
+    out, out_len = sharded.sharded_compress_blocks(mesh, blocks, lens)
+    dst, err = sharded.sharded_decode_streams_replay(mesh, out, out_len, lens, 65536)
+    rows, row_len = sharded.sharded_encode_frame_chunks(mesh, blocks, lens)
+    srcs, src_lens = packing.batch_streams(
+        [out.numpy()[i, : out_len.numpy()[i]].tobytes() for i in range(len(lens))], 65536)
+    flat, ferr, fb = sharded.sharded_decode_flat_host(mesh, srcs, src_lens, lens, 65536)
+    c1 = _sharded_counts()
+    assert [b - a for a, b in zip(c0, c1)] == [2 * m, m, m, m]
+    for x in (out, out_len, dst, err, rows, row_len, flat):
+        assert isinstance(x, Sharded) and [t.device for t in x.shards] == card
+    o, n = out.numpy(), out_len.numpy()
+    assert write_varu64(len(data)) + b"".join(o[i, : n[i]].tobytes() for i in range(len(n))) \
+        == native.compress(data)
+    r, rl = rows.numpy(), row_len.numpy()
+    assert b"\xff\x06\x00\x00sNaPpY" + b"".join(r[i, : rl[i]].tobytes() for i in range(len(rl))) \
+        == native.frame_compress(data)
+    for got in (dst.numpy(), flat.numpy()):
+        assert b"".join(got[i, : lens[i]].tobytes() for i in range(len(lens))) == data
+    assert not err.numpy().any() and not ferr.any() and not fb.any()
+
+    with device_trace(str(tmp_path)):
+        sharded.sharded_compress_blocks(mesh, blocks, lens)
+        sharded.sharded_decode_flat_host(mesh, srcs, src_lens, lens, 65536)
+        sharded.sharded_decode_streams_replay(mesh, out, out_len, lens, 65536)
+    (path,) = glob.glob(str(tmp_path / "trace.*.json"))
+    events = device_events(path)
+    assert any(e["cat"] == "kernel" for e in events)
+    assert device_to_device_copies(events) == []
+
+
 def test_compress_on_the_card(dev):
     data = load_corpus("alice29.txt") + load_corpus("fireworks.jpeg")[:70000] + b"tail" * 999
     parse.launches = 0

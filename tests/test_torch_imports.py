@@ -268,3 +268,54 @@ def test_surface_agrees_with_the_jax_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          check=True, capture_output=True, text=True).stdout
     assert out.strip() == "1"
+
+
+JAX_OPS_NAMES = {  # snappy_tpu/ops/__init__.py's imports
+    "api": "api", "packing": "packing", "decode_batch": "decode", "decode_batch_hosted": "decode",
+    "compress_blocks": "encode", "compress_blocks_fast": "encode_fast",
+    "crc32c_blocks": "crc32c", "crc32c_masked_blocks": "crc32c", "encode_frame_chunks": "frame",
+}
+
+
+@pytest.mark.parametrize("name", sorted(JAX_OPS_NAMES))
+def test_ops_exports_the_jax_packages_names(name):
+    """``snappy_tpu_torch.ops`` exports each name ``snappy_tpu.ops`` does, as
+    the port's function (or module) of that name."""
+    import importlib
+    import types
+
+    import snappy_tpu.ops as jops
+    import snappy_tpu_torch.ops as ops
+
+    mine, theirs = getattr(ops, name), getattr(jops, name)
+    module = importlib.import_module(f"snappy_tpu_torch.ops.{JAX_OPS_NAMES[name]}")
+    if isinstance(theirs, types.ModuleType):
+        assert mine is module and theirs.__name__ == f"snappy_tpu.ops.{name}"
+    else:
+        assert mine is getattr(module, name) and mine.__module__ == module.__name__
+
+
+def test_parallel_exports_the_jax_packages_names(monkeypatch):
+    """``snappy_tpu_torch.parallel`` exports what ``snappy_tpu.parallel``
+    does: ``ParallelConfig`` with the same frozen fields and defaults, and
+    ``auto_mesh()`` as ``make_mesh()``."""
+    import dataclasses
+
+    import snappy_tpu.parallel as jpar
+    import snappy_tpu_torch.parallel as par
+
+    names = ("ParallelConfig", "auto_mesh", "make_mesh", "sharded_compress_blocks",
+             "sharded_decode_streams", "sharded_encode_frame_chunks")
+    assert all(hasattr(jpar, n) and getattr(par, n).__module__.startswith("snappy_tpu_torch.")
+               for n in names)
+    fields = [(f.name, f.default) for f in dataclasses.fields(par.ParallelConfig)]
+    assert fields == [(f.name, f.default) for f in dataclasses.fields(jpar.ParallelConfig)]
+    assert par.ParallelConfig() == par.ParallelConfig(64, 1 << 18)
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        par.ParallelConfig().blocks_per_device = 1
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        par.auto_mesh()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    assert par.auto_mesh() == par.make_mesh()
+    assert par.auto_mesh().devices == tuple(torch.device("cuda", i) for i in range(3))

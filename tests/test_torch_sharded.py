@@ -19,7 +19,8 @@ from snappy_tpu_torch.ops.encode import compress_blocks
 from snappy_tpu_torch.ops.encode_fast import compress_blocks_fast
 from snappy_tpu_torch.parallel import sharded
 from torch_vectors import (
-    cpu_mesh, hold_jax_native, share_cores_with_workers, shard_blocks, shard_bodies,
+    cpu_mesh, hold_jax_native, jax_entry_outputs, share_cores_with_workers, shard_blocks,
+    shard_bodies,
 )
 
 share_cores_with_workers()
@@ -34,20 +35,16 @@ def jmesh():
     return jax_mesh(jax.devices()[:8])
 
 
-def as_np(xs):
-    return [np.asarray(x) for x in xs]
-
-
 @pytest.fixture(scope="module")
 def exact(jmesh):
-    want = as_np(jsharded.sharded_compress_blocks(jmesh, BLOCKS, LENS))
+    want = jax_entry_outputs(jsharded.sharded_compress_blocks, jmesh, BLOCKS, LENS)
     whole = [t.numpy() for t in compress_blocks(torch.from_numpy(BLOCKS), torch.from_numpy(LENS))]
     return want, whole
 
 
 @pytest.fixture(scope="module")
 def fast(jmesh):
-    want = as_np(jsharded.sharded_compress_blocks(jmesh, BLOCKS, LENS, fast=True))
+    want = jax_entry_outputs(jsharded.sharded_compress_blocks, jmesh, BLOCKS, LENS, fast=True)
     whole = [t.numpy() for t in compress_blocks_fast(torch.from_numpy(BLOCKS), torch.from_numpy(LENS))]
     return want, whole
 
@@ -86,9 +83,9 @@ def test_ragged_batch_pads_and_an_undivided_batch_raises(exact):
     np.testing.assert_array_equal(pl, jl)
     out, out_len = sharded.sharded_compress_blocks(cpu_mesh(4), pb, pl)
     want_out, want_len = exact[0]
-    np.testing.assert_array_equal(out[:real].numpy(), want_out[:real])
-    np.testing.assert_array_equal(out_len[:real].numpy(), want_len[:real])
-    assert out_len[real:].tolist() == [0, 0]
+    np.testing.assert_array_equal(out.numpy()[:real], want_out[:real])
+    np.testing.assert_array_equal(out_len.numpy()[:real], want_len[:real])
+    assert out_len.numpy()[real:].tolist() == [0, 0]
     # An already divided batch is left as it is.
     same, same_len, b = sharded.pad_batch(BLOCKS, LENS, 4)
     assert same is BLOCKS and same_len is LENS and b == 8
@@ -112,8 +109,8 @@ def test_one_device_mesh_is_one_call_without_a_copy(monkeypatch):
     monkeypatch.setattr(sharded, "compress_blocks", spy)
     blocks, lens = torch.from_numpy(BLOCKS), torch.from_numpy(LENS)
     out, out_len = sharded.sharded_compress_blocks(cpu_mesh(1), blocks, lens)
-    assert len(calls) == 1 and out.data_ptr() == blocks.data_ptr()
-    assert out_len.data_ptr() == lens.data_ptr()
+    assert len(calls) == 1 and out.shards[0].data_ptr() == blocks.data_ptr()
+    assert out_len.shards[0].data_ptr() == lens.data_ptr()
     calls.clear()
     sharded.sharded_compress_blocks(cpu_mesh(4), blocks, lens)
     assert [c[0].shape[0] for c in calls] == [2, 2, 2, 2]
@@ -157,8 +154,8 @@ def test_no_sharded_entry_calls_a_collective(monkeypatch):
         "replay": lambda: sharded.sharded_decode_streams_replay(mesh, srcs, src_lens, LENS, d_pad)[0],
     }
     for name, run in runs.items():
-        rows = run()
+        rows = run().numpy()
         if name.startswith("compress") or name == "frame":
             continue
         for i, n in enumerate(LENS):
-            assert rows[i, :n].numpy().tobytes() == BLOCKS[i, :n].tobytes(), (name, i)
+            assert rows[i, :n].tobytes() == BLOCKS[i, :n].tobytes(), (name, i)

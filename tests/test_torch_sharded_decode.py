@@ -16,7 +16,8 @@ from snappy_tpu_torch.ops.frame import encode_frame_chunks
 from snappy_tpu_torch.ops.replay import decode_replay
 from snappy_tpu_torch.parallel import sharded
 from torch_vectors import (
-    cpu_mesh, hold_jax_native, share_cores_with_workers, shard_blocks, shard_decode_batch,
+    cpu_mesh, hold_jax_native, jax_entry_outputs, share_cores_with_workers, shard_blocks,
+    shard_decode_batch,
 )
 
 share_cores_with_workers()
@@ -34,22 +35,22 @@ def t(x):
 
 ENTRIES = {
     "streams": (
-        lambda m: jsharded.sharded_decode_streams(m, SRCS, SRC_LENS, DECLENS, D_PAD),
+        lambda m: jax_entry_outputs(jsharded.sharded_decode_streams, m, SRCS, SRC_LENS, DECLENS, D_PAD),
         lambda m: sharded.sharded_decode_streams(m, SRCS, SRC_LENS, DECLENS, D_PAD),
         lambda: decode_batch(t(SRCS), t(SRC_LENS), t(DECLENS), D_PAD),
     ),
     "hosted": (
-        lambda m: jsharded.sharded_decode_streams_hosted(m, SRCS, SRC_LENS, DECLENS, BITS, D_PAD),
+        lambda m: jax_entry_outputs(jsharded.sharded_decode_streams_hosted, m, SRCS, SRC_LENS, DECLENS, BITS, D_PAD),
         lambda m: sharded.sharded_decode_streams_hosted(m, SRCS, SRC_LENS, DECLENS, BITS, D_PAD),
         lambda: decode_batch_hosted(t(SRCS), t(SRC_LENS), t(DECLENS), t(BITS), D_PAD),
     ),
     "replay": (
-        lambda m: jsharded.sharded_decode_streams_pallas(m, SRCS, SRC_LENS, DECLENS, D_PAD),
+        lambda m: jax_entry_outputs(jsharded.sharded_decode_streams_pallas, m, SRCS, SRC_LENS, DECLENS, D_PAD),
         lambda m: sharded.sharded_decode_streams_replay(m, SRCS, SRC_LENS, DECLENS, D_PAD),
         lambda: decode_replay(t(SRCS), t(SRC_LENS), t(DECLENS), D_PAD),
     ),
     "frame_chunks": (
-        lambda m: jsharded.sharded_encode_frame_chunks(m, BLOCKS, LENS),
+        lambda m: jax_entry_outputs(jsharded.sharded_encode_frame_chunks, m, BLOCKS, LENS),
         lambda m: sharded.sharded_encode_frame_chunks(m, BLOCKS, LENS),
         lambda: encode_frame_chunks(t(BLOCKS), t(LENS)),
     ),
@@ -61,7 +62,7 @@ def wanted():
     """Each entry's JAX outputs on the 8-device mesh and the unsharded port
     call's, computed once."""
     jmesh = jax_mesh(jax.devices()[:8])
-    return {name: ([np.asarray(x) for x in theirs(jmesh)], [x.numpy() for x in whole()])
+    return {name: (theirs(jmesh), [x.numpy() for x in whole()])
             for name, (theirs, _, whole) in ENTRIES.items()}
 
 

@@ -15,7 +15,9 @@ from snappy_tpu_torch import native
 from snappy_tpu_torch.format.varint import write_varu64
 from snappy_tpu_torch.ops.encode_flat import compress_blocks_flat_fast
 from snappy_tpu_torch.parallel import sharded
-from torch_vectors import cpu_mesh, hold_jax_native, share_cores_with_workers, shard_blocks
+from torch_vectors import (
+    cpu_mesh, hold_jax_native, jax_entry_outputs, share_cores_with_workers, shard_blocks,
+)
 
 share_cores_with_workers()
 hold_jax_native()
@@ -26,7 +28,7 @@ BLOCKS, LENS = shard_blocks()
 @pytest.fixture(scope="module")
 def wanted():
     jmesh = jax_mesh(jax.devices()[:8])
-    want = [np.asarray(x) for x in jsharded.sharded_compress_blocks_flat(jmesh, BLOCKS, LENS)]
+    want = jax_entry_outputs(jsharded.sharded_compress_blocks_flat, jmesh, BLOCKS, LENS)
     whole = [x.numpy() for x in compress_blocks_flat_fast(torch.from_numpy(BLOCKS),
                                                           torch.from_numpy(LENS))]
     return want, whole

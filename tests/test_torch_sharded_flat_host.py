@@ -19,7 +19,8 @@ from snappy_tpu_torch import native
 from snappy_tpu_torch.ops.decode_flat import decode_flat
 from snappy_tpu_torch.parallel import sharded
 from torch_vectors import (
-    cpu_mesh, hold_jax_native, share_cores_with_workers, shard_blocks, shard_decode_batch,
+    cpu_mesh, hold_jax_native, jax_entry_outputs, share_cores_with_workers, shard_blocks,
+    shard_decode_batch,
 )
 
 share_cores_with_workers()
@@ -41,8 +42,7 @@ def wanted():
     JAX package's ``sharded_decode_streams_flat``. Also the unsharded port
     call on the port's flatten."""
     jmesh = jax_mesh(jax.devices()[:8])
-    want = [np.asarray(x) for x in jsharded.sharded_decode_flat_host(
-        jmesh, SRCS, SRC_LENS, DECLENS, D_PAD)]
+    want = jax_entry_outputs(jsharded.sharded_decode_flat_host, jmesh, SRCS, SRC_LENS, DECLENS, D_PAD)
     idx, tmeta, _, _, _ = flatten(native)
     whole = decode_flat(*(torch.from_numpy(x) for x in (SRCS, idx.view(np.int16), tmeta, DECLENS)),
                         D_PAD, 1).numpy()
@@ -65,7 +65,7 @@ def test_sharded_decode_flat_host(wanted, n):
     np.testing.assert_array_equal(fb, want_fb)
     assert not fb.any() and not err[:8].any() and err[8:].all()
     for i, m in enumerate(LENS):
-        assert dst[i, :m].numpy().tobytes() == BLOCKS[i, :m].tobytes()
+        assert dst.numpy()[i, :m].tobytes() == BLOCKS[i, :m].tobytes()
 
 
 @pytest.mark.parametrize("n", [1, 2, 4])

@@ -18,7 +18,8 @@ from snappy_tpu_torch import native
 from snappy_tpu_torch.ops.resolve import decode_resolve_batch
 from snappy_tpu_torch.parallel import sharded
 from torch_vectors import (
-    cpu_mesh, hold_jax_native, share_cores_with_workers, shard_blocks, shard_decode_batch,
+    cpu_mesh, hold_jax_native, jax_entry_outputs, share_cores_with_workers, shard_blocks,
+    shard_decode_batch,
 )
 
 share_cores_with_workers()
@@ -34,8 +35,7 @@ RECS, NOPS, ERRS, _ = native.scan_records_batch(
 @pytest.fixture(scope="module")
 def wanted():
     jmesh = jax_mesh(jax.devices()[:8])
-    want = [np.asarray(x) for x in jsharded.sharded_decode_resolve(
-        jmesh, SRCS, RECS, NOPS, DECLENS, D_PAD)]
+    want = jax_entry_outputs(jsharded.sharded_decode_resolve, jmesh, SRCS, RECS, NOPS, DECLENS, D_PAD)
     whole = [x.numpy() for x in decode_resolve_batch(
         *(torch.from_numpy(x) for x in (SRCS, RECS, NOPS.astype(np.int32), DECLENS)), D_PAD)]
     return want, whole

@@ -57,12 +57,15 @@ def test_timed_reports_throughput():
 
 
 def test_timed_waits_for_the_card_when_it_is_in_use(monkeypatch):
+    """Every card is synchronized before each clock read: a sharded entry's
+    shards run on several."""
     syncs = []
     monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda: syncs.append(1))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: syncs.append(device))
     with timed("op", out=io.StringIO()):
-        assert len(syncs) == 1
-    assert len(syncs) == 2
+        assert syncs == [0, 1]
+    assert syncs == [0, 1, 0, 1]
 
 
 def test_device_trace_writes_a_chrome_trace_naming_a_torch_op(tmp_path):
@@ -157,3 +160,32 @@ def test_every_decode_route_decodes_googles_streams(libsnappy, monkeypatch, rout
         small = libsnappy.compress(DECODE_DATA[:300])
         assert snappy_tpu_torch.decompress(small) == DECODE_DATA[:300]
     assert len(raw) - len(write_varu64(len(DECODE_DATA))) > 65536  # a body past one block
+
+
+def test_device_events_copies_and_overlap_from_a_trace_file(tmp_path):
+    """The trace readers on a hand-made Chrome trace: two cards whose
+    kernels overlap for 3 us, a card-to-card copy and a copy on one card
+    among host-to-device copies, and host events they leave out."""
+    from snappy_tpu_torch.utils.profiling import (
+        cross_device_overlap_us, device_events, device_to_device_copies,
+    )
+
+    def ev(name, cat, dev, ts, dur):
+        return {"ph": "X", "name": name, "cat": cat, "ts": ts, "dur": dur, "args": {"device": dev}}
+
+    trace = {"traceEvents": [
+        ev("k0", "kernel", 0, 0, 5), ev("k1", "kernel", 1, 2, 10), ev("k0b", "kernel", 0, 8, 1),
+        ev("Memcpy HtoD (Pageable -> Device)", "gpu_memcpy", 0, 0, 1),
+        ev("Memcpy PtoP (Device -> Device)", "gpu_memcpy", 1, 20, 1),
+        ev("Memcpy DtoD (Device -> Device)", "gpu_memcpy", 0, 30, 1),
+        ev("Memset (Device)", "gpu_memset", 0, 40, 1),
+        {"ph": "X", "name": "aten::add", "cat": "cpu_op", "ts": 0, "dur": 50},
+        {"ph": "i", "name": "marker", "cat": "kernel", "ts": 3},
+    ]}
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps(trace))
+    events = device_events(str(path))
+    assert [e["name"] for e in events][:3] == ["k0", "k1", "k0b"] and len(events) == 7
+    assert [e["name"][7:11] for e in device_to_device_copies(events)] == ["PtoP", "DtoD"]
+    assert cross_device_overlap_us(events) == 4.0  # [2, 5) and [8, 9)
+    assert cross_device_overlap_us(events, "gpu_memcpy") == 0.0

@@ -5,6 +5,7 @@ them on a machine without JAX.
 """
 
 import fcntl
+import hashlib
 import os
 import time
 from pathlib import Path
@@ -280,6 +281,47 @@ def k9_planes(d_pad: int, seed: int):
     a[5, 0] = 0                                # position 0 points to itself
     a[6] = np.where(p % 4096 == 0, FLAG + p, p - 1)  # a chain of 4,095 in each window
     return torch.tensor(a, dtype=torch.int32)
+
+
+def jax_entry_outputs(entry, mesh, *args, **kwargs) -> list[np.ndarray]:
+    """``entry(mesh, *args, **kwargs)``'s outputs as numpy arrays: a JAX
+    sharded entry's, computed once for every test file and worker that asks.
+
+    The JAX entries whose Pallas kernels compile in interpret mode take
+    15-20 s each on the CPU, and several ``test_torch_sharded*`` files hold
+    the port to the same outputs. They are kept in
+    ``build/jax_outputs/<entry>-<key>.npz``, the key a hash of the mesh's
+    size, every argument (an array's dtype, shape and bytes, else its
+    ``repr``), JAX's version and the JAX package's sources, so a changed
+    input or package computes them anew; a lock of their own makes a second
+    asker wait for the first one's result."""
+    import jax
+
+    h = hashlib.sha256(f"{entry.__name__} {mesh.devices.size} {jax.__version__}".encode())
+    for a in (*args, *sorted(kwargs.items())):
+        if isinstance(a, np.ndarray):
+            a = np.ascontiguousarray(a)
+            h.update(f"{a.dtype} {a.shape}".encode())
+            h.update(a.tobytes())
+        else:
+            h.update(repr(a).encode())
+    for src in sorted((REPO / "snappy_tpu").rglob("*")):
+        if src.suffix in (".py", ".cpp"):
+            h.update(str(src.relative_to(REPO)).encode())
+            h.update(src.read_bytes())
+    path = REPO / "build" / "jax_outputs" / f"{entry.__name__}-{h.hexdigest()[:16]}.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if path.exists():
+            with np.load(path) as z:
+                return [z[f"a{i}"] for i in range(len(z.files))]
+        out = entry(mesh, *args, **kwargs)
+        out = [np.asarray(x) for x in (out if isinstance(out, tuple) else (out,))]
+        tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.npz")
+        np.savez(tmp, **{f"a{i}": x for i, x in enumerate(out)})
+        os.replace(tmp, path)
+        return out
 
 
 def cpu_mesh(n: int):
