@@ -45,7 +45,17 @@ card. Phases:
 4. the CLI: ``python -m snappy_tpu_torch.cli.szip --engine device`` in
    processes of its own compresses a corpus file (``-k``), decompresses it
    (``-d``) and round-trips it with ``--raw``; ``cmp`` holds each file to
-   the original and to the host codec's.
+   the original and to the host codec's;
+5. the differential campaign's device legs on mutated streams
+   (``python -m snappy_tpu_torch.tools.fuzz_campaign``, legs 3, 4, 5 and
+   8-12 at ``CAMPAIGN_COUNTS``, each in a process of its own, all at once):
+   no divergence and no fault, and each leg's launches show the kernels of
+   its table (K1 and K2 in leg 5, K2 in legs 8 and 10, K10 in leg 9, K4 and
+   both entries of K6 in leg 11, K8 and K2 in leg 12), with the reason where
+   K3 did not launch; one ``{"campaign": ...}`` line;
+6. the benchmark, ``python -m snappy_tpu_torch.bench``, with a deadline of
+   300 s: every stage passes (each checks every row) and reports the fields
+   of ``BENCH_FIELDS``; one ``{"bench": ...}`` line.
 
 K8 and K9 (chain resolution) and K10 (record replay) are held against
 their plain versions on the frame's largest launch group (455 rows,
@@ -205,43 +215,18 @@ def check(cond: bool, what: str) -> None:
 
 def cuda_ms(fn, reps: int, warm: int = 2) -> float:
     """Mean milliseconds per call over ``reps`` warm calls (CUDA events)."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / reps
+    from snappy_tpu_torch.utils.profiling import event_ms
+
+    return event_ms(fn, reps, warm)[0]
 
 
 def device_ms(fn, reps: int) -> float:
     """Mean milliseconds per call with the host out of the window: ``reps``
     calls captured once in a CUDA graph, whose replay is timed with CUDA
-    events (the wrappers launch on the current stream, the capture's)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(2):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    stop.record()
-    stop.synchronize()
-    del graph
-    return start.elapsed_time(stop) / reps
+    events."""
+    from snappy_tpu_torch.utils.profiling import graph_ms
+
+    return graph_ms(fn, reps)[0]
 
 
 def bound_ms(nbytes: int, int_ops: int = 0) -> tuple[float, str]:
@@ -416,38 +401,12 @@ def busy_us(events: list[dict]) -> float:
     return sum(b - a for a, b in union(events))
 
 
-def counts() -> dict:
-    """Every kernel wrapper's launch count, by kernel."""
-    from snappy_tpu_torch.ops import (
-        crc32c, decode_flat, emit, encode, parse, records, replay, resolve,
-    )
-
-    return {"crc32c": crc32c.launches, "replay": replay.launches,
-            "flat_gather[layout=0]": decode_flat.layout_launches[0],
-            "flat_gather[layout=1]": decode_flat.layout_launches[1],
-            "flat_grouped[v3]": decode_flat.grouped_launches[3],
-            "flat_grouped[v4]": decode_flat.grouped_launches[4],
-            "parse": parse.launches, "encode": encode.launches, **emit.entry_launches,
-            **resolve.launches, "records": records.launches}
-
-
-def reset_counts() -> None:
-    from snappy_tpu_torch.ops import (
-        crc32c, decode_flat, emit, encode, parse, records, replay, resolve,
-    )
-
-    for m in (crc32c, decode_flat, replay, parse, encode, records):
-        m.launches = 0
-    decode_flat.layout_launches[:] = [0, 0]
-    for d in (emit.entry_launches, resolve.launches, decode_flat.grouped_launches):
-        for k in d:
-            d[k] = 0
-
-
 def counted_run(by_path: dict, path: str, fn, want: dict):
     """``fn()`` with every launch count set to 0 just before it and kept in
     ``by_path[path]`` just after; fails unless it launched exactly the
     kernels and counts of ``want``. Returns its result and seconds."""
+    from snappy_tpu_torch.ops import launch_counts as counts, reset_launch_counts as reset_counts
+
     reset_counts()
     sync_cards()
     t0 = time.perf_counter()
@@ -963,6 +922,96 @@ def ncu_record() -> dict:
     return out
 
 
+#: The campaign's device legs as chip_smoke runs them (cases a leg), and
+#: the kernels each must launch on the card.
+CAMPAIGN_COUNTS = {3: 300, 4: 64, 5: 200, 8: 300, 9: 300, 10: 48, 11: 48, 12: 48}
+CAMPAIGN_KERNELS = {
+    5: {"crc32c", "flat_gather[layout=0]", "flat_gather[layout=1]"},
+    8: {"flat_gather[layout=0]"}, 9: {"records"}, 10: {"flat_gather[layout=1]"},
+    11: {"parse", "shift_idx", "emit_bytes"},
+    12: {"resolve_fh", "flat_gather[layout=1]"},
+}
+#: Kernels the campaign's table names for a leg where they run only on some
+#: inputs: K3 takes a launch group the host flatten rejects.
+CAMPAIGN_MAYBE = {5: {"replay"}, 8: {"replay"}}
+
+
+def campaign_phase(report: dict) -> None:
+    """The differential campaign's device legs on the card, each in a
+    process of its own, all at once (``snappy_tpu_torch.tools.fuzz_campaign``):
+    no divergence, no fault, and each leg's launches show its kernels."""
+    counts = [CAMPAIGN_COUNTS.get(k, 0) for k in range(1, 13)]
+    legs = ",".join(str(k) for k in CAMPAIGN_COUNTS)
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "snappy_tpu_torch.tools.fuzz_campaign", *map(str, counts),
+         "--legs", legs], cwd=HERE, capture_output=True, text=True, timeout=400,
+    )
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(HERE, "chiprun_out", "chip_smoke_campaign.log"), "w") as f:
+        f.write(r.stdout + r.stderr)
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
+    check(bool(lines), f"the campaign printed no result (exit {r.returncode}): {r.stderr[-2000:]}")
+    out = json.loads(lines[-1])
+    check(r.returncode == 0 and out.get("ok"),
+          f"the campaign's device legs failed: {out.get('failed_legs')}; "
+          + "; ".join(f"leg {k}: {out.get(f'leg{k}_failure')} at cases "
+                      f"{out.get(f'leg{k}_cases_at_fault')}" for k in out.get("failed_legs", [])))
+    summary = {"seconds": seconds, "legs": {}}
+    for k in CAMPAIGN_COUNTS:
+        launched = out[f"leg{k}_launches"]
+        want = CAMPAIGN_KERNELS.get(k, set())
+        check(want <= set(launched), f"campaign leg {k} launched {launched}, not all of {want}")
+        check(set(launched) <= want | CAMPAIGN_MAYBE.get(k, set()),
+              f"campaign leg {k} launched {launched}, beyond {want}")
+        leg = {f: v for f, v in out.items() if f.startswith(f"leg{k}_")}
+        for kernel in sorted(CAMPAIGN_MAYBE.get(k, set()) - set(launched)):
+            leg[f"why_no_{kernel}"] = (
+                f"every launch group took {sorted(out.get(f'leg{k}_routes', {}))}: the host "
+                "flatten rejects only a tile whose sources spread past its widest window, "
+                "which needs a body past 64 KiB, and this leg's bodies are at most 12,000 "
+                "bytes of input")
+        summary["legs"][k] = leg
+    report["campaign"] = summary
+    print(json.dumps({"campaign": summary}))
+
+
+#: Fields every stage of ``snappy_tpu_torch.bench`` must report on the card.
+BENCH_FIELDS = [
+    "platform", "card", "canary_tflops", "canary_hbm_gbps", "canary_roundtrip_ms",
+    "decode16_GBps", "decode16_device_GBps", "decode_GBps", "decode_hybrid_GBps",
+    "decode_pallas_GBps", "decode_records_GBps", "decode_device_GBps", "decode_flat_host_GBps",
+    "decode_e2e_GBps", "decode_e2e_serial_GBps", "decode_resolve_device_GBps",
+    "decode_resolve_e2e_GBps", "decode_peak_bytes", "crc32c_GBps", "crc32c_device_GBps",
+    "compress_GBps", "compress_device_GBps", "compress_flat_device_GBps", "encode_peak_bytes",
+    "sharded_devices", "sharded_decode_xla_ndev_GBps", "sharded_decode_hosted_ndev_GBps",
+    "sharded_decode_1dev_GBps", "sharded_decode_ndev_GBps",
+]
+
+
+def bench_phase(report: dict) -> None:
+    """``python -m snappy_tpu_torch.bench`` as a user runs it, with a deadline:
+    every stage passes (each checks every row it decodes or compresses) and
+    reports its fields."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "snappy_tpu_torch.bench"], cwd=HERE,
+                       capture_output=True, text=True, timeout=330,
+                       env={**os.environ, "BENCH_DEADLINE_S": "300"})
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(HERE, "chiprun_out", "chip_smoke_bench.log"), "w") as f:
+        f.write(r.stdout + r.stderr)
+    lines = r.stdout.strip().splitlines()
+    check(bool(lines), f"bench printed no result (exit {r.returncode}): {r.stderr[-2000:]}")
+    out = json.loads(lines[-1])
+    check(r.returncode == 0 and not out.get("failures"), f"bench failed: {out.get('failures')}")
+    missing = [f for f in BENCH_FIELDS if f not in out]
+    check(not missing, f"bench fields missing: {missing}")
+    check(all(isinstance(out[f], (int, float)) for f in BENCH_FIELDS if f not in ("platform", "card")),
+          "a bench field is not a number")
+    report["bench"] = {"seconds": seconds, **out}
+    print(json.dumps({"bench": {"seconds": seconds, **{f: out[f] for f in ["value", *BENCH_FIELDS]}}}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -974,8 +1023,8 @@ def main() -> int:
     from snappy_tpu_torch import native, read, write
     from snappy_tpu_torch.format.varint import read_varu64, write_varu64
     from snappy_tpu_torch.ops import (
-        _build, api, crc32c, decode_flat, emit, encode, encode_flat, packing, parse, records,
-        replay, resolve,
+        _build, api, crc32c, decode_flat, emit, encode, encode_flat, launch_counts as counts,
+        packing, parse, records, replay, resolve, reset_launch_counts as reset_counts,
     )
 
     dev = torch.device("cuda")
@@ -2047,6 +2096,11 @@ def main() -> int:
     report["cli_s"] = cli_s
     print(f"szip --engine device on {len(text)} bytes: -k, -d and --raw both ways equal the "
           f"original and the host codec's files (cmp); seconds per process {cli_s}")
+
+    # The campaign's device legs on mutated streams, then the benchmark, each
+    # in processes of their own.
+    campaign_phase(report)
+    bench_phase(report)
 
     report["kernels"] = kernels
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

@@ -61,6 +61,64 @@ def timed(label: str, nbytes: int | None = None, out=None):
         print(f"{label}: {dt * 1e3:.2f} ms", file=out)
 
 
+def event_ms(fn, reps: int, warm: int = 2, turns: int = 1, check=None) -> list[float]:
+    """Milliseconds per call of ``fn`` on the card, one reading per turn:
+    each turn is ``reps`` calls on resident inputs between two CUDA events,
+    the host's dispatch included, after ``warm`` untimed calls.
+    ``check(out)`` then sees the output of the last timed call."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    out, last = [], None
+    for _ in range(turns):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            last = fn()
+        stop.record()
+        stop.synchronize()
+        out.append(start.elapsed_time(stop) / reps)
+    if check is not None:
+        check(last)
+    return out
+
+
+def graph_ms(fn, reps: int, turns: int = 1, check=None) -> list[float]:
+    """Milliseconds per call of ``fn`` with the host out of the window, one
+    reading per turn: ``reps`` calls captured once in a CUDA graph (the
+    wrappers launch on the current stream, the capture's), each turn one
+    replay between two CUDA events. ``fn`` must read nothing back.
+    ``check(out)`` then sees the last captured call's output as the last
+    replay left it, so the timed work is the checked work."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            last = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(turns):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        stop.synchronize()
+        out.append(start.elapsed_time(stop) / reps)
+    if check is not None:
+        check(last)
+    del graph
+    return out
+
+
 @contextlib.contextmanager
 def device_trace(logdir: str):
     """Capture a ``torch.profiler`` trace of the block into ``logdir`` as a

@@ -854,3 +854,44 @@ def test_record_scan_routes_on_the_card(dev, route):
     with pytest.raises(Exception) as want:
         native.frame_decompress(bytes(bad))
     assert type(got.value) is type(want.value) and str(got.value) == str(want.value)
+
+
+#: The kernels each device leg of the campaign launches on these cases (legs 3
+#: and 4 run tensor ops only).
+LEG_KERNELS = {
+    3: set(), 4: set(), 5: {"crc32c", "flat_gather[layout=0]", "flat_gather[layout=1]"},
+    8: {"flat_gather[layout=0]"}, 9: {"records"}, 10: {"flat_gather[layout=1]"},
+    11: {"parse", "shift_idx", "emit_bytes"},
+    12: {"resolve_fh", "flat_gather[layout=1]"},
+}
+
+
+@pytest.mark.parametrize("leg,n", [(3, 30), (4, 4), (5, 20), (8, 30), (9, 30), (10, 4), (11, 16),
+                                   (12, 8)])
+def test_campaign_device_leg_on_the_card(dev, leg, n):
+    """Each device leg of the differential campaign at a handful of cases:
+    every row held to the oracle, on the kernels of its table."""
+    from snappy_tpu_torch.tools import fuzz_campaign
+
+    fields, ok = fuzz_campaign.run_leg(leg, n, cpu=False)
+    assert ok, fields
+    assert set(fields[f"leg{leg}_launches"]) == LEG_KERNELS[leg]
+
+
+@pytest.mark.parametrize("timer", ["graph_ms", "event_ms"])
+def test_timing_helpers_check_the_timed_calls(dev, timer):
+    """``utils.profiling``'s device timers (``bench`` and ``chip_smoke.py``
+    time with both): one reading per turn, and ``check`` sees the output of
+    the last timed call, a graph's as its last replay left it."""
+    from snappy_tpu_torch.ops.crc32c import crc32c_masked_blocks
+    from snappy_tpu_torch.utils import profiling
+
+    rng = np.random.default_rng(7)
+    rows = torch.from_numpy(rng.integers(0, 256, (8, 4096), np.uint8)).to(dev)
+    lens = torch.from_numpy(rng.integers(0, 4097, 8).astype(np.int32)).to(dev)
+    want = crc32c_masked_blocks(rows, lens).cpu()
+    seen = []
+    ms = getattr(profiling, timer)(lambda: crc32c_masked_blocks(rows, lens), 4, turns=3,
+                                   check=lambda out: seen.append(out.cpu()))
+    assert len(ms) == 3 and all(t > 0 for t in ms)
+    assert len(seen) == 1 and torch.equal(seen[0], want)

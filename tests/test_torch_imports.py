@@ -17,6 +17,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PORT_MODULES = [
     "snappy_tpu_torch",
+    "snappy_tpu_torch.bench",
     "snappy_tpu_torch.cli",
     "snappy_tpu_torch.cli.szip",
     "snappy_tpu_torch.config",
@@ -51,6 +52,8 @@ PORT_MODULES = [
     "snappy_tpu_torch.parallel.sharded",
     "snappy_tpu_torch.raw",
     "snappy_tpu_torch.read",
+    "snappy_tpu_torch.tools",
+    "snappy_tpu_torch.tools.fuzz_campaign",
     "snappy_tpu_torch.utils",
     "snappy_tpu_torch.utils.cpp_oracle",
     "snappy_tpu_torch.utils.profiling",

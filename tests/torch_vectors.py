@@ -283,6 +283,30 @@ def k9_planes(d_pad: int, seed: int):
     return torch.tensor(a, dtype=torch.int32)
 
 
+def _jax_package_hash(h) -> None:
+    """Feed every source of the JAX package into the hash ``h``."""
+    for src in sorted((REPO / "snappy_tpu").rglob("*")):
+        if src.suffix in (".py", ".cpp"):
+            h.update(str(src.relative_to(REPO)).encode())
+            h.update(src.read_bytes())
+
+
+def _computed_once(path: Path, compute, save, load):
+    """``load(path)`` if an earlier asker left it, else ``compute()`` saved
+    there by ``save(tmp, value)``; a lock of its own makes a second asker
+    wait for the first one's result."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if path.exists():
+            return load(path)
+        value = compute()
+        tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp{path.suffix}")
+        save(tmp, value)
+        os.replace(tmp, path)
+        return value
+
+
 def jax_entry_outputs(entry, mesh, *args, **kwargs) -> list[np.ndarray]:
     """``entry(mesh, *args, **kwargs)``'s outputs as numpy arrays: a JAX
     sharded entry's, computed once for every test file and worker that asks.
@@ -293,8 +317,7 @@ def jax_entry_outputs(entry, mesh, *args, **kwargs) -> list[np.ndarray]:
     ``build/jax_outputs/<entry>-<key>.npz``, the key a hash of the mesh's
     size, every argument (an array's dtype, shape and bytes, else its
     ``repr``), JAX's version and the JAX package's sources, so a changed
-    input or package computes them anew; a lock of their own makes a second
-    asker wait for the first one's result."""
+    input or package computes them anew."""
     import jax
 
     h = hashlib.sha256(f"{entry.__name__} {mesh.devices.size} {jax.__version__}".encode())
@@ -305,23 +328,50 @@ def jax_entry_outputs(entry, mesh, *args, **kwargs) -> list[np.ndarray]:
             h.update(a.tobytes())
         else:
             h.update(repr(a).encode())
-    for src in sorted((REPO / "snappy_tpu").rglob("*")):
-        if src.suffix in (".py", ".cpp"):
-            h.update(str(src.relative_to(REPO)).encode())
-            h.update(src.read_bytes())
-    path = REPO / "build" / "jax_outputs" / f"{entry.__name__}-{h.hexdigest()[:16]}.npz"
-    path.parent.mkdir(parents=True, exist_ok=True)
-    with open(path.with_suffix(".lock"), "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if path.exists():
-            with np.load(path) as z:
-                return [z[f"a{i}"] for i in range(len(z.files))]
+    _jax_package_hash(h)
+
+    def compute():
         out = entry(mesh, *args, **kwargs)
-        out = [np.asarray(x) for x in (out if isinstance(out, tuple) else (out,))]
-        tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.npz")
-        np.savez(tmp, **{f"a{i}": x for i, x in enumerate(out)})
-        os.replace(tmp, path)
-        return out
+        return [np.asarray(x) for x in (out if isinstance(out, tuple) else (out,))]
+
+    def load(path):
+        with np.load(path) as z:
+            return [z[f"a{i}"] for i in range(len(z.files))]
+
+    return _computed_once(
+        REPO / "build" / "jax_outputs" / f"{entry.__name__}-{h.hexdigest()[:16]}.npz", compute,
+        lambda tmp, out: np.savez(tmp, **{f"a{i}": x for i, x in enumerate(out)}), load,
+    )
+
+
+def jax_campaign_leg(leg: int, n: int) -> dict:
+    """Leg ``leg`` of the JAX campaign (``tools/fuzz_campaign.py``) at ``n``
+    cases, computed once for every test file and worker that asks: its
+    kernel legs run the Pallas kernels in interpret mode (15-30 s each on
+    the CPU). Kept in ``build/jax_outputs/`` as JSON, keyed by the leg,
+    ``n``, ``FUZZ_SEED_OFFSET``, JAX's version, the campaign's source and
+    the JAX package's sources."""
+    import importlib.util
+    import json
+
+    import jax
+
+    campaign = REPO / "tools" / "fuzz_campaign.py"
+    offset = os.environ.get("FUZZ_SEED_OFFSET", "0")
+    h = hashlib.sha256(f"leg{leg} {n} {offset} {jax.__version__}".encode())
+    h.update(campaign.read_bytes())
+    _jax_package_hash(h)
+
+    def compute():
+        spec = importlib.util.spec_from_file_location("jax_fuzz_campaign", campaign)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return getattr(mod, f"leg{leg}")(n)
+
+    return _computed_once(
+        REPO / "build" / "jax_outputs" / f"fuzz_leg{leg}-{h.hexdigest()[:16]}.json", compute,
+        lambda tmp, out: tmp.write_text(json.dumps(out)), lambda path: json.loads(path.read_text()),
+    )
 
 
 def cpu_mesh(n: int):
