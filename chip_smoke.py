@@ -55,7 +55,15 @@ card. Phases:
    K3 did not launch; one ``{"campaign": ...}`` line;
 6. the benchmark, ``python -m snappy_tpu_torch.bench``, with a deadline of
    300 s: every stage passes (each checks every row) and reports the fields
-   of ``BENCH_FIELDS``; one ``{"bench": ...}`` line.
+   of ``BENCH_FIELDS``; one ``{"bench": ...}`` line;
+7. the host-against-card tools (``TOOL_RUNS``), each a process with a
+   deadline, all at once: ``tools.crossover_measure`` at 64 KiB, 1 MiB and
+   16 MiB, ``tools.flatten_scale`` at one thread and every thread,
+   ``tools.scaling_measure`` with one NCCL rank and two ranks (gloo, sharing
+   ``cuda:0`` on a card of its own; ``shared_card`` and no efficiency) of 8
+   blocks each. Each checks every call it times; each must pass, give every
+   rate and launch its kernels; their output goes to
+   ``chiprun_out/chip_smoke_<tool>.log``; one ``{"tools": ...}`` line.
 
 K8 and K9 (chain resolution) and K10 (record replay) are held against
 their plain versions on the frame's largest launch group (455 rows,
@@ -1010,6 +1018,81 @@ def bench_phase(report: dict) -> None:
           "a bench field is not a number")
     report["bench"] = {"seconds": seconds, **out}
     print(json.dumps({"bench": {"seconds": seconds, **{f: out[f] for f in ["value", *BENCH_FIELDS]}}}))
+
+
+#: The host-against-card tools as chip_smoke runs them (arguments, seconds
+#: allowed), and the kernels each must launch on the card.
+TOOL_RUNS = {
+    "crossover_measure": (["--sizes", "65536,1048576,16777216"], 240,
+                          {"crc32c", "flat_gather[layout=1]", "parse", "fused_emit"}),
+    "flatten_scale": (["--threads", "1,all"], 180, {"flat_gather[layout=1]", "resolve_fh"}),
+    "scaling_measure": (["--ranks", "1,2", "--blocks", "8"], 240, {"encode"}),
+}
+
+
+def tools_phase(report: dict) -> None:
+    """The three host-against-card tools of ``snappy_tpu_torch.tools``, each a
+    process with a deadline, all at once: each checks every call it times
+    and must pass, give every rate, and launch its kernels (the crossover at
+    each size; the scaling run's NCCL rank and its two gloo ranks sharing
+    ``cuda:0``, the latter marked ``shared_card`` and given no efficiency)."""
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", f"snappy_tpu_torch.tools.{name}", *args], cwd=HERE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, (args, _, _) in TOOL_RUNS.items()}
+    outs = {}
+    try:
+        for name, p in procs.items():
+            try:
+                outs[name] = p.communicate(timeout=max(1.0, TOOL_RUNS[name][1]
+                                                       - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                outs[name] = p.communicate()
+    finally:
+        for p in procs.values():
+            p.kill()
+    summary = {"seconds": time.perf_counter() - t0}
+    for name, p in procs.items():
+        stdout, stderr = outs[name]
+        with open(os.path.join(HERE, "chiprun_out", f"chip_smoke_{name}.log"), "w") as f:
+            f.write(stdout + stderr)
+        lines = stdout.strip().splitlines()
+        check(p.returncode == 0 and bool(lines),
+              f"{name} exited {p.returncode}: {stderr[-2000:]}")
+        out = json.loads(lines[-1])
+        check(out["ok"] and out["card"] != "not measured", f"{name} failed: {out.get('failure')}")
+        kernels = TOOL_RUNS[name][2]
+        if name == "crossover_measure":
+            for row in out["rows"]:
+                check(all(isinstance(v, float) for k, v in row.items() if k.endswith("GBps")),
+                      f"crossover at {row['bytes']} bytes: a rate is not a number")
+                check(kernels <= set(row["launches"]),
+                      f"crossover at {row['bytes']} bytes launched {row['launches']}")
+            summary[name] = {k: v for k, v in out.items() if k.endswith("crossover_bytes")}
+            summary[name]["rows"] = [{k: v for k, v in r.items() if k == "bytes" or k.endswith(
+                ("GBps", "launches"))} for r in out["rows"]]
+        elif name == "flatten_scale":
+            check(kernels <= set(out["launches"]), f"flatten_scale launched {out['launches']}")
+            summary[name] = {k: out[k] for k in (
+                "per_core_GBps", "flatten_best_GBps", "scan_per_core_GBps", "scan_best_GBps",
+                "device_GBps", "resolve_device_GBps", "cards_fed", "cores_to_feed_one_card",
+                "scan_cards_fed", "scan_cores_to_feed_one_card", "launches")}
+        else:
+            plan = [(r["ranks"], r["backend"], r["shared_card"]) for r in out["runs"]]
+            shared = torch.cuda.device_count() < 2
+            check(plan == [(1, "nccl", False), (2, "gloo" if shared else "nccl", shared)],
+                  f"scaling_measure ran {plan}")
+            check(all(kernels <= set(r["launches"]) for run in out["runs"]
+                      for r in run["per_rank"]), "a scaling rank launched no K7")
+            check(not shared or out["efficiency"][0]["efficiency_1_to_2"] is None,
+                  "scaling_measure gave an efficiency for ranks sharing one card")
+            summary[name] = {"runs": [{k: r[k] for k in (
+                "ranks", "backend", "shared_card", "encode_s", "allgather_s", "write_s",
+                "total_s", "stream_bytes")} for r in out["runs"]], "efficiency": out["efficiency"]}
+    report["tools"] = summary
+    print(json.dumps({"tools": summary}))
 
 
 def main() -> int:
@@ -2101,6 +2184,7 @@ def main() -> int:
     # in processes of their own.
     campaign_phase(report)
     bench_phase(report)
+    tools_phase(report)
 
     report["kernels"] = kernels
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

@@ -895,3 +895,43 @@ def test_timing_helpers_check_the_timed_calls(dev, timer):
                                    check=lambda out: seen.append(out.cpu()))
     assert len(ms) == 3 and all(t > 0 for t in ms)
     assert len(seen) == 1 and torch.equal(seen[0], want)
+
+
+#: The host-against-card tools at small sizes, and the kernels each must launch.
+TOOL_RUNS = {
+    "crossover_measure": (["--sizes", "65536,1048576"],
+                          {"crc32c", "flat_gather[layout=1]", "parse", "fused_emit"}),
+    "flatten_scale": (["--threads", "1,all"], {"flat_gather[layout=1]", "resolve_fh"}),
+    "scaling_measure": (["--ranks", "1", "--blocks", "8"], {"encode"}),
+}
+
+
+@pytest.mark.parametrize("name", list(TOOL_RUNS))
+def test_host_against_card_tool_on_the_card(dev, name, tmp_path, monkeypatch, capsys):
+    """Each tool of ``snappy_tpu_torch.tools`` that times the host against the
+    card, on the card: every measured call checked, every rate a number, and
+    its kernels launched."""
+    import importlib
+    import json
+
+    from snappy_tpu_torch import tools
+
+    tool = importlib.import_module(f"snappy_tpu_torch.tools.{name}")
+    monkeypatch.setattr(tools, "OUT_DIR", tmp_path)
+    if name == "scaling_measure":
+        monkeypatch.setattr(tool, "WORK", tmp_path / "work")
+    args, kernels = TOOL_RUNS[name]
+    assert tool.main(args) == 0
+    out = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert out["ok"] and out["device_count"] >= 1 and out["card"] != "not measured"
+    if name == "crossover_measure":
+        for row in out["rows"]:
+            assert all(isinstance(v, float) for k, v in row.items() if k.endswith("GBps"))
+            assert kernels <= set(row["launches"])
+    elif name == "flatten_scale":
+        assert out["cores_to_feed_one_card"] > 0 and out["scan_cores_to_feed_one_card"] > 0
+        assert kernels <= set(out["launches"])
+    else:
+        (run,) = out["runs"]
+        assert run["backend"] == "nccl" and not run["shared_card"]
+        assert kernels <= set(run["per_rank"][0]["launches"])

@@ -53,7 +53,10 @@ PORT_MODULES = [
     "snappy_tpu_torch.raw",
     "snappy_tpu_torch.read",
     "snappy_tpu_torch.tools",
+    "snappy_tpu_torch.tools.crossover_measure",
+    "snappy_tpu_torch.tools.flatten_scale",
     "snappy_tpu_torch.tools.fuzz_campaign",
+    "snappy_tpu_torch.tools.scaling_measure",
     "snappy_tpu_torch.utils",
     "snappy_tpu_torch.utils.cpp_oracle",
     "snappy_tpu_torch.utils.profiling",
