@@ -64,6 +64,18 @@ card. Phases:
    blocks each. Each checks every call it times; each must pass, give every
    rate and launch its kernels; their output goes to
    ``chiprun_out/chip_smoke_<tool>.log``; one ``{"tools": ...}`` line.
+8. the graft entry (``snappy_tpu_torch.graft_entry``, the port of
+   ``__graft_entry__.py``), the counts set to 0 before each call and read
+   after it: ``entry()``'s step on the card launches K1 and no other
+   kernel, its rows equal the port's CPU run of ``entry(device="cpu")``
+   byte for byte, and the stream identifier followed by its rows decodes
+   through the host codec, CRCs verified, to each row's first ``len``
+   bytes; ``dryrun_multichip`` over every card, and with four shards on
+   ``cuda:0``, passes every leg and launches each leg's kernels once a
+   mesh entry (K1 and K7 framing, K3 replay, K2 from the host flatten, K8
+   and K2 resolving, K4 and K5 the flat encoder; the tensor decode
+   launches none); one ``{"graft": ...}`` line of each call's seconds and
+   launches by kernel.
 
 K8 and K9 (chain resolution) and K10 (record replay) are held against
 their plain versions on the frame's largest launch group (455 rows,
@@ -1093,6 +1105,50 @@ def tools_phase(report: dict) -> None:
                 "total_s", "stream_bytes")} for r in out["runs"]], "efficiency": out["efficiency"]}
     report["tools"] = summary
     print(json.dumps({"tools": summary}))
+
+
+def graft_want(n: int) -> dict:
+    """The launches of one ``graft_entry.dryrun_multichip`` on a mesh of ``n``
+    entries: each leg's kernels once a mesh entry, K2 in two legs."""
+    return {"crc32c": n, "encode": n, "replay": n, "flat_gather[layout=1]": 2 * n,
+            "resolve_fh": n, "parse": n, "fused_emit": n}
+
+
+def graft_phase(report: dict) -> None:
+    """The graft entry on the card (phase 8 of the module docstring)."""
+    from snappy_tpu_torch import graft_entry, native
+    from snappy_tpu_torch.format.constants import STREAM_IDENTIFIER
+
+    by_path = {}
+    fn, args = graft_entry.entry()
+    check(all(a.device.type == "cuda" for a in args), "entry() placed its inputs off the card")
+    (rows, row_len), entry_s = counted_run(by_path, "graft_entry", lambda: fn(*args),
+                                           {"crc32c": 1})
+    cfn, cargs = graft_entry.entry(device="cpu")
+    crows, crow_len = cfn(*cargs)
+    check(torch.equal(rows.cpu(), crows) and torch.equal(row_len.cpu(), crow_len),
+          "entry()'s rows on the card differ from its CPU run's")
+    chunks, lens = cargs[0].numpy(), cargs[1].numpy()
+    r, n = rows.cpu().numpy(), row_len.cpu().numpy()
+    stream = STREAM_IDENTIFIER + b"".join(r[i, : n[i]].tobytes() for i in range(len(n)))
+    check(native.frame_decompress(stream)
+          == b"".join(chunks[i, : lens[i]].tobytes() for i in range(len(lens))),
+          "entry()'s frame does not decode to its input")
+
+    def launched(path):
+        return {k: v for k, v in by_path[path].items() if v}
+
+    cards = torch.cuda.device_count()
+    runs = {f"dryrun_{cards}_cards": (cards, None), "dryrun_4_on_cuda0": (4, "cuda:0")}
+    summary = {"entry_s": entry_s, "entry_launches": launched("graft_entry"), "dryruns": {}}
+    for path, (m, device) in runs.items():
+        _, seconds = counted_run(
+            by_path, path, lambda m=m, device=device: graft_entry.dryrun_multichip(m, device=device),
+            graft_want(m))
+        summary["dryruns"][path] = {"mesh": m, "device": device or "every card",
+                                    "seconds": seconds, "launches": launched(path)}
+    report["graft"] = summary
+    print(json.dumps({"graft": summary}))
 
 
 def main() -> int:
@@ -2185,6 +2241,7 @@ def main() -> int:
     campaign_phase(report)
     bench_phase(report)
     tools_phase(report)
+    graft_phase(report)
 
     report["kernels"] = kernels
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

@@ -13,6 +13,12 @@ Precedence, highest first:
 3. the process-wide base set by :func:`set_config`;
 4. the dataclass defaults below.
 
+:func:`configure` and :func:`set_config` also take the JAX package's field
+names (:data:`_REFERENCE_FIELDS`: ``configure(pallas_resolve=True)`` is
+``configure(decode_resolve=True)``), so code written for the JAX package
+runs unchanged; its three TPU-only knobs are accepted and ignored
+(:data:`_IGNORED_FIELDS`).
+
 Example::
 
     import snappy_tpu_torch
@@ -208,6 +214,29 @@ _IGNORED_ENV = (
     "SNAPPY_TPU_PALLAS_COMPOSE",
 )
 
+#: The JAX ``Config`` fields of those variables, which :func:`configure` and
+#: :func:`set_config` accept and ignore for the same reason.
+_IGNORED_FIELDS = ("pallas_encode", "pallas_fastpath", "pallas_compose")
+
+
+def _port_fields(overrides: dict) -> dict:
+    """``overrides`` with each JAX field name (:data:`_REFERENCE_FIELDS`) as
+    the port field it pairs with, and the TPU-only ones dropped. A JAX name
+    given with its port name, or a name neither package has, raises
+    ``TypeError``."""
+    out, given_as = {}, {}
+    for name, value in overrides.items():
+        if name in _IGNORED_FIELDS:
+            continue
+        ours = _REFERENCE_FIELDS.get(name, name)
+        if ours in out:
+            raise TypeError(f"{given_as[ours]!r} and {name!r} both set the config field {ours!r}")
+        out[ours], given_as[ours] = value, name
+    unknown = set(out) - {f.name for f in fields(Config)}
+    if unknown:
+        raise TypeError(f"unknown config fields: {sorted(unknown)}")
+    return out
+
 
 def _current_base() -> Config:
     ctx = _base_var.get()
@@ -234,12 +263,13 @@ def set_config(cfg: Config | None = None, **overrides) -> Config:
     overrides).
 
     Pass a full :class:`Config`, or field overrides applied to the
-    current base. Returns the new base.
+    current base, by the port's or the JAX package's names. Returns the new
+    base.
     """
     global _base_default
     if cfg is not None and overrides:
         raise TypeError("pass a Config or field overrides, not both")
-    _base_default = cfg if cfg is not None else replace(_base_default, **overrides)
+    _base_default = cfg if cfg is not None else replace(_base_default, **_port_fields(overrides))
     return _base_default
 
 
@@ -250,13 +280,10 @@ def configure(**overrides):
 
     Re-entrant and safe under threads/async: overrides live in a
     ContextVar, so concurrent callers see their own values and
-    out-of-order unwinds restore exactly the state each caller saw.
+    out-of-order unwinds restore exactly the state each caller saw. Fields
+    go by the port's or the JAX package's names.
     """
-    names = {f.name for f in fields(Config)}
-    unknown = set(overrides) - names
-    if unknown:
-        raise TypeError(f"unknown config fields: {sorted(unknown)}")
-    token = _base_var.set(replace(_current_base(), **overrides))
+    token = _base_var.set(replace(_current_base(), **_port_fields(overrides)))
     try:
         yield _base_var.get()
     finally:

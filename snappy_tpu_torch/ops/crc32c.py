@@ -251,11 +251,12 @@ def _crc(rows: torch.Tensor, lengths: torch.Tensor, masked: bool) -> torch.Tenso
     return out
 
 
-def crc32c_blocks(rows: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """Unmasked CRC32C of each row up to its length, ``(B,)`` int64."""
-    return _crc(rows, lengths, masked=False)
+def crc32c_blocks(blocks: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Unmasked CRC32C of each row of ``blocks`` up to its length, ``(B,)``
+    int64."""
+    return _crc(blocks, lengths, masked=False)
 
 
-def crc32c_masked_blocks(rows: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """Masked CRC32C per row, as stored in frame chunk headers."""
-    return _crc(rows, lengths, masked=True)
+def crc32c_masked_blocks(blocks: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Masked CRC32C per row of ``blocks``, as stored in frame chunk headers."""
+    return _crc(blocks, lengths, masked=True)

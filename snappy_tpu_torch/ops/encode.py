@@ -505,7 +505,7 @@ def compress_blocks(blocks, lengths):
     return out, out_len
 
 
-def compress_blocks_host(blocks: np.ndarray, lengths: np.ndarray, device, span=_no_span):
+def compress_blocks_host(blocks: np.ndarray, lengths: np.ndarray, device, *, span=_no_span):
     """Host-facing wrapper: numpy blocks and lengths in, numpy ``(out,
     out_len)`` out, computed on ``device``. A poisoned ``out_len`` (an
     op-count overflow, which the bound argument rules out) raises.

@@ -133,7 +133,8 @@ def compress_blocks_fast(blocks, lengths):
     return serialize_ops(blocks, scat_ops(kind_v), scat_ops(a_v), scat_ops(b_v), nops)
 
 
-def compress_blocks_fast_host(blocks: np.ndarray, lengths: np.ndarray, device, span=_no_span):
+def compress_blocks_fast_host(blocks: np.ndarray, lengths: np.ndarray, device, *,
+                              span=_no_span):
     """Host-facing wrapper (the JAX package's ``compress_blocks_fast_host``):
     numpy blocks and lengths in, numpy ``(out, out_len)`` out, computed on
     ``device``. ``span(name, device)`` times the copies (``h2d``, ``d2h``)

@@ -23,7 +23,10 @@ Output: valid raw Snappy per block, byte-identical to the JAX package's
 ``compress_blocks_flat_fast``.
 
 Tensors stay on the blocks' device; nothing moves to the host but the
-final rows.
+final rows. The public calls take the JAX package's arguments: their
+``interpret`` is accepted and selects nothing, since the tensors' device
+chooses between each kernel and its plain version; the port's ``span`` is
+keyword-only after them.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from .emit import BP_WIN_ROWS, GROUP, N_GROUPS, emit_bytes, fused_emit, shift_id
 from .parse import JW_CAND, LANES, MAX_REC, NSEG, S, SEG, parse_blocks
 
 OUT_W = 76800  # >= max_compress_len(65536)
+OUT_ROWS = OUT_W // LANES  # 600
 
 HDR_PITCH = 32
 NREC2 = NSEG * MAX_REC + 8  # +1 tail slot, padded to a row multiple
@@ -283,7 +287,7 @@ def _overflow(cnt):
     return cnt[:, :, 1].max(1).values
 
 
-def compress_blocks_flat(blocks, lengths):
+def compress_blocks_flat(blocks, lengths, interpret: bool | None = None):
     """Flat compress of a ``(B, 65536)`` block batch with the reference
     emission: ``(out (B, OUT_W) uint8, out_len (B,) int32, overflow (B,)
     int32)``. ``overflow[b] != 0`` flags a block whose segment filled its
@@ -452,7 +456,8 @@ def _fused_plan(blocks, lengths, rec0, rec1, cnt):
             dlt.view(bsz, NBP_PAD // LANES, LANES), src, ovf_bp)
 
 
-def records_to_bytes_fused(blocks, lengths, rec0, rec1, cnt, span=_no_span):
+def records_to_bytes_fused(blocks, lengths, rec0, rec1, cnt, interpret: bool | None = None, *,
+                           span=_no_span):
     """Fused fast emission, plan -> bytes in one launch (K5).
 
     Bit-exact with :func:`records_to_bytes`. Returns ``(out (B, OUT_W)
@@ -468,7 +473,7 @@ def records_to_bytes_fused(blocks, lengths, rec0, rec1, cnt, span=_no_span):
     return out[:, :OUT_W], out_len, ovf
 
 
-def records_to_bytes_fast(blocks, lengths, rec0, rec1, cnt):
+def records_to_bytes_fast(blocks, lengths, rec0, rec1, cnt, interpret: bool | None = None):
     """Split fast emission, K6: the same plan, then the index and the
     gather in two launches. The JAX package permutes ``idx`` into its v2
     tile layout and bases a header window on it per tile (``hbase``), TPU
@@ -500,7 +505,7 @@ def _compress_blocks_flat_split(blocks, lengths):
     return out, out_len, torch.maximum(_overflow(cnt), ovf_bp)
 
 
-def compress_blocks_flat_fast(blocks, lengths, span=_no_span):
+def compress_blocks_flat_fast(blocks, lengths, interpret: bool | None = None, *, span=_no_span):
     """Fast flat compress of a ``(B, 65536)`` uint8 block batch on its
     device: prepass, K4, the plan and K5. Same contract as
     :func:`compress_blocks_flat`.
@@ -511,11 +516,11 @@ def compress_blocks_flat_fast(blocks, lengths, span=_no_span):
     512-byte segment holds at most 128 records (< MAX_REC = 144), and the
     breakpoint window is sized to the wire format's worst case."""
     n, rec0, rec1, cnt = _parse(blocks, lengths, span)
-    out, out_len, ovf_bp = records_to_bytes_fused(blocks, n, rec0, rec1, cnt, span)
+    out, out_len, ovf_bp = records_to_bytes_fused(blocks, n, rec0, rec1, cnt, span=span)
     return out, out_len, torch.maximum(_overflow(cnt), ovf_bp)
 
 
-def compress_blocks_flat_host(blocks, lengths, device, span=_no_span):
+def compress_blocks_flat_host(blocks, lengths, device, *, span=_no_span):
     """Host-facing wrapper: numpy ``(B, 65536)`` uint8 blocks and ``(B,)``
     lengths in, numpy ``(out (B, OUT_W) uint8, out_len (B,) int32)`` out,
     computed on ``device``.
@@ -528,7 +533,7 @@ def compress_blocks_flat_host(blocks, lengths, device, span=_no_span):
     with span("h2d"):
         blocks_t = torch.from_numpy(np.ascontiguousarray(blocks, np.uint8)).to(dev)
         lens_t = torch.from_numpy(np.asarray(lengths, np.int32)).to(dev)
-    out, out_len, ovf = compress_blocks_flat_fast(blocks_t, lens_t, span)
+    out, out_len, ovf = compress_blocks_flat_fast(blocks_t, lens_t, span=span)
     bad = ovf != 0
     if bool(bad.any()):
         from .encode_fast import compress_blocks_fast

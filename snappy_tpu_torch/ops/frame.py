@@ -40,7 +40,7 @@ def _varint_u17(n):
     return torch.stack([b0, b1, b2], 1), vlen
 
 
-def encode_frame_chunks(chunks, lengths, fast: bool = False, span=_no_span):
+def encode_frame_chunks(chunks, lengths, fast: bool = False, *, span=_no_span):
     """Frame-encode a batch of uncompressed chunks into wire bytes.
 
     ``chunks``: ``(B, W)`` uint8 zero-padded, ``W % 128 == 0`` and ``W <=
@@ -94,7 +94,7 @@ def encode_frame_chunks(chunks, lengths, fast: bool = False, span=_no_span):
     return rows, row_len
 
 
-def encode_frame_host(buf: bytes, device, fast: bool = False, span=_no_span) -> list[bytes]:
+def encode_frame_host(buf: bytes, device, fast: bool = False, *, span=_no_span) -> list[bytes]:
     """Frame chunks of ``buf`` (every 64 KiB of it, header included), in
     launches of :data:`CHUNKS_PER_LAUNCH` chunks on ``device``: one
     ``bytes`` per launch. ``span`` times ``pack``, ``h2d``, the device

@@ -337,7 +337,7 @@ def resolve(a0):
     return out
 
 
-def idx_to_v2_inputs(a, declens, d_pad: int, s_rows: int):
+def idx_to_v2_inputs(a_resolved, declens, d_pad: int, s_rows: int):
     """Resolved plane to the flat gather's inputs, as the C++ flatten
     (``core.cpp`` ``stpu_flatten_idx``) chooses them: per 1024-byte tile the
     narrowest window of 512, 256 or 128 rows of 128 bytes (tried wide to
@@ -347,18 +347,18 @@ def idx_to_v2_inputs(a, declens, d_pad: int, s_rows: int):
     indices relative to the tile's base, in ``layout=1`` order;
     ``tile_meta (B, d_pad // 1024, 2)`` int32 ``[base row, bucket]``;
     ``fallback (B,)`` int32, set where a tile fits no window)."""
-    b = a.shape[0]
+    b = a_resolved.shape[0]
     nt = d_pad // 1024
-    d = torch.arange(d_pad, device=a.device)[None, :]
+    d = torch.arange(d_pad, device=a_resolved.device)[None, :]
     live = (d < declens.to(torch.int64)[:, None]).reshape(b, nt, 1024)
-    iv = torch.where(live, (a.to(torch.int64) - FLAG).reshape(b, nt, 1024), 0)
+    iv = torch.where(live, (a_resolved.to(torch.int64) - FLAG).reshape(b, nt, 1024), 0)
     any_live = live.any(dim=2)
     mn = torch.where(live, iv, 1 << 30).amin(dim=2)
     mx = torch.where(live, iv, 0).amax(dim=2)
     mn = torch.where(any_live, mn, 0)
     min_row = torch.div(mn, 128, rounding_mode="floor")
-    bucket = torch.full((b, nt), -1, dtype=torch.int64, device=a.device)
-    base = torch.zeros((b, nt), dtype=torch.int64, device=a.device)
+    bucket = torch.full((b, nt), -1, dtype=torch.int64, device=a_resolved.device)
+    base = torch.zeros((b, nt), dtype=torch.int64, device=a_resolved.device)
     for wi, w in ((2, 512), (1, 256), (0, 128)):
         cand = min_row.clamp(max=s_rows - min(w, s_rows)).clamp(min=0) & ~7
         ok = mx - cand * 128 < w * 128
@@ -374,31 +374,41 @@ def idx_to_v2_inputs(a, declens, d_pad: int, s_rows: int):
     return idx.contiguous(), tile_meta, fallback
 
 
-def decode_resolve_batch(srcs, recs, nops, declens, d_pad: int, use_fused: bool = True,
-                         span=_no_span):
+def decode_resolve_batch(srcs, recs, nops, declens, d_pad: int, interpret: bool | None = None,
+                         use_pallas: bool = True, use_fused: bool = True, *, span=_no_span):
     """Decode a launch group from its op records: resolve, then K2.
 
     ``srcs``: ``(B, S)`` uint8 zero-padded bodies (``S % 128 == 0``, at most
     64 KiB); ``recs``, ``nops``: the scan's records ``(B, CAP, 2)`` int32
     and op counts ``(B,)`` int32 (every ``nops <= CAP``: the caller routes
     overflowing groups away); ``declens`` ``(B,)`` int32; ``d_pad`` whole
-    16 KiB up to 64 KiB. ``use_fused`` takes K8 (first hops in the kernel)
-    over ``records_to_pointers`` and K9. Returns ``(out (B, d_pad) uint8,
-    fallback (B,) int32)``: a row with ``fallback`` set has a tile that fits
-    no gather window or a chain left unresolved, and its bytes are not
-    valid. ``span(name, dev)`` (``ops.api._span``) times the torch ops as
-    ``plan`` and the kernels as ``kernels``.
+    16 KiB up to 64 KiB. The arguments are the JAX package's: ``use_pallas``
+    and ``use_fused`` take K8 (first hops in the kernel); ``use_fused=False``
+    takes ``records_to_pointers`` and K9; ``use_pallas=False`` takes
+    ``records_to_pointers`` and :func:`resolve_reference`, the explicit
+    opt-in of the JAX package's (never a fallback). Every setting gathers
+    with K2. ``interpret`` is accepted and selects nothing: the tensors'
+    device chooses between each kernel and its plain version. Returns
+    ``(out (B, d_pad) uint8, fallback (B,) int32)``: a row with
+    ``fallback`` set has a tile that fits no gather window or a chain left
+    unresolved, and its bytes are not valid. ``span(name, dev)``
+    (``ops.api._span``) times the torch ops as ``plan`` and the kernels as
+    ``kernels``.
     """
     if d_pad % 16384:
         raise ValueError(f"d_pad {d_pad} is not whole 16 KiB groups")
     dev = srcs.device
+    fused = use_pallas and use_fused
     with span("plan", dev):
-        if use_fused:
+        if fused:
             startsx, payload = records_to_kernel_inputs(recs, nops, declens, d_pad)
         else:
             a0 = records_to_pointers(recs, nops, declens, d_pad)
     with span("kernels", dev):
-        a = resolve_fh(startsx, payload, declens, d_pad) if use_fused else resolve(a0)
+        if fused:
+            a = resolve_fh(startsx, payload, declens, d_pad)
+        else:
+            a = resolve(a0) if use_pallas else resolve_reference(a0)
     with span("plan", dev):
         idx, tile_meta, fallback = idx_to_v2_inputs(a, declens, d_pad, srcs.shape[1] // 128)
         # A chain left unresolved by the round budget must not ship.

@@ -16,6 +16,10 @@ from dataclasses import dataclass
 
 import torch
 
+#: The single mesh axis: independent blocks/chunks. Data-parallel only:
+#: Snappy has no tensor or pipeline dimension to shard.
+BLOCK_AXIS = "blocks"
+
 
 @dataclass(frozen=True)
 class Mesh:
@@ -25,21 +29,24 @@ class Mesh:
     stands for four devices (the JAX tests' virtual CPU devices), or two
     shards share one card. ``rank`` and ``world_size`` place this process's
     mesh in a ``torch.distributed`` world (``multihost.global_mesh``); a
-    local mesh is rank 0 of 1."""
+    local mesh is rank 0 of 1. ``axis`` is the axis's name, as a JAX mesh
+    keeps it: the sharded entries shard over :data:`BLOCK_AXIS` and raise
+    ``ValueError`` on a mesh of another axis, as the JAX entries do."""
 
     devices: tuple[torch.device, ...]
     rank: int = 0
     world_size: int = 1
+    axis: str = BLOCK_AXIS
 
     @property
     def size(self) -> int:
         return len(self.devices)
 
 
-def make_mesh(devices=None) -> Mesh:
-    """1-D mesh over ``devices`` (default: every CUDA device of this
-    process). Raises when no devices are given and there is no card: there
-    is no CPU fallback."""
+def make_mesh(devices=None, axis: str = BLOCK_AXIS) -> Mesh:
+    """1-D mesh named ``axis`` over ``devices`` (default: every CUDA device
+    of this process). Raises when no devices are given and there is no
+    card: there is no CPU fallback."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass the mesh's devices, e.g. [torch.device('cpu')] * 4")
@@ -47,7 +54,7 @@ def make_mesh(devices=None) -> Mesh:
     devices = tuple(_indexed(torch.device(d)) for d in devices)
     if not devices:
         raise ValueError("a mesh needs at least one device")
-    return Mesh(devices)
+    return Mesh(devices, axis=axis)
 
 
 def _indexed(dev: torch.device) -> torch.device:

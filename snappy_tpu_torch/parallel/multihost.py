@@ -33,7 +33,7 @@ import torch.distributed as dist
 
 from .. import native
 from ..config import get_config
-from .mesh import Mesh
+from .mesh import BLOCK_AXIS, Mesh  # noqa: F401 (BLOCK_AXIS: the JAX module's export)
 from .sharded import sharded_compress_blocks, sharded_decode_streams, sharded_decode_streams_hosted
 
 

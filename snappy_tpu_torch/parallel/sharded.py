@@ -44,7 +44,8 @@ Port entry -> JAX entry, and what each shard runs:
 - :func:`sharded_decode_resolve` -> ``sharded_decode_resolve``:
   ``ops.resolve.decode_resolve_batch`` (K8, K2);
 - :func:`sharded_decode_streams_replay` -> ``sharded_decode_streams_pallas``
-  (the name would mislead here): ``ops.replay.decode_replay`` (K3);
+  (the port's name says what runs; the JAX name is kept as a second name
+  of the same function): ``ops.replay.decode_replay`` (K3);
 - :func:`sharded_decode_streams_flat` -> ``sharded_decode_streams_flat``:
   ``ops.decode_flat.decode_flat(layout=1)`` (K2);
 - :func:`sharded_encode_frame_chunks` -> ``sharded_encode_frame_chunks``:
@@ -52,7 +53,9 @@ Port entry -> JAX entry, and what each shard runs:
 - :func:`stream_offsets` -> ``stream_offsets`` (``torch.cumsum``);
 - :func:`map_shards` -> ``shard_map`` itself, for any batched function.
 
-Inputs are numpy arrays, tensors (on the CPU or a card; a shard of one on
+Each entry shards over the mesh's :data:`BLOCK_AXIS` and raises
+``ValueError`` on a mesh of another axis name, as the JAX entries' specs
+do. Inputs are numpy arrays, tensors (on the CPU or a card; a shard of one on
 another device than its entry's is copied there) or :class:`Sharded`;
 lengths of any integer type are taken as the port's functions take them
 (int32).
@@ -78,6 +81,7 @@ from ..ops.encode_flat import compress_blocks_flat_fast
 from ..ops.frame import encode_frame_chunks
 from ..ops.replay import decode_replay
 from ..ops.resolve import decode_resolve_batch
+from .mesh import BLOCK_AXIS
 
 
 def pad_batch(arrs: np.ndarray, lengths: np.ndarray, multiple: int):
@@ -209,7 +213,12 @@ def map_shards(mesh, fn, *arrays):
     must divide over the mesh (:func:`pad_batch`). Returns a
     :class:`Sharded` of ``fn``'s outputs, or a tuple of them when ``fn``
     returns a tuple; shard ``i`` is the very tensor ``fn`` returned on
-    entry ``i``."""
+    entry ``i``. A mesh whose axis is not :data:`BLOCK_AXIS` raises
+    ``ValueError``, as ``shard_map`` refuses specs that name no axis of the
+    mesh."""
+    if mesh.axis != BLOCK_AXIS:
+        raise ValueError(f"the sharded entries shard over the axis {BLOCK_AXIS!r}; "
+                         f"this mesh's axis is {mesh.axis!r}")
     b = _rows(arrays[0])
     if any(_rows(a) != b for a in arrays):
         raise ValueError("every input must have one row per block")
@@ -313,6 +322,10 @@ def sharded_decode_streams_replay(mesh, srcs, src_lens, declens, d_pad: int):
     err (B,) int32)``."""
     return map_shards(mesh, lambda s, n, d: decode_replay(s, n, d, d_pad),
                       srcs, _int32(src_lens), _int32(declens))
+
+
+#: The JAX package's name of :func:`sharded_decode_streams_replay`.
+sharded_decode_streams_pallas = sharded_decode_streams_replay
 
 
 def sharded_decode_streams_flat(mesh, srcs, idx_phys, tile_meta, declens, d_pad: int):

@@ -104,8 +104,8 @@ def test_an_overflow_flag_raises(monkeypatch):
     bytes of the fast parallel encoder (``ops/encode_fast.py``)."""
     real = ef.compress_blocks_flat_fast
 
-    def flagged(blocks, lengths, span):
-        out, out_len, ovf = real(blocks, lengths, span)
+    def flagged(blocks, lengths, *, span):
+        out, out_len, ovf = real(blocks, lengths, span=span)
         return out, out_len, torch.ones_like(ovf)
 
     monkeypatch.setattr(ef, "compress_blocks_flat_fast", flagged)

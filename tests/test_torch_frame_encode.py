@@ -93,8 +93,8 @@ def test_an_overflow_flag_takes_the_fast_encoders_bytes(monkeypatch):
     want_fast = fast.compress_blocks_fast(torch.from_numpy(blocks), torch.from_numpy(lens))
     real = ef.compress_blocks_flat_fast
 
-    def flagged(blocks, lengths, span):
-        out, out_len, ovf = real(blocks, lengths, span)
+    def flagged(blocks, lengths, *, span):
+        out, out_len, ovf = real(blocks, lengths, span=span)
         return out, out_len, torch.tensor([0, 1, 0], dtype=ovf.dtype)
 
     monkeypatch.setattr(ef, "compress_blocks_flat_fast", flagged)

@@ -628,6 +628,52 @@ def test_sharded_entries_leave_each_shard_on_its_card(dev, m, tmp_path):
     assert device_to_device_copies(events) == []
 
 
+def _graft_want(n: int) -> dict:
+    """The kernels one dry run launches on a mesh of ``n`` entries: each of
+    its legs' kernels once a mesh entry, K2 in the flat and the resolve leg."""
+    return {"crc32c": n, "encode": n, "replay": n, "flat_gather[layout=1]": 2 * n,
+            "resolve_fh": n, "parse": n, "fused_emit": n}
+
+
+def test_graft_entry_on_the_card(dev):
+    """``graft_entry.entry()`` on the card: its rows equal the CPU run's,
+    the frame verifies, and K1 is the only kernel it launches."""
+    from snappy_tpu_torch import graft_entry
+    from snappy_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    fn, args = graft_entry.entry()
+    assert all(a.device.type == "cuda" for a in args)
+    reset_launch_counts()
+    rows, row_len = fn(*args)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in launch_counts().items() if v} == {"crc32c": 1}
+    cfn, cargs = graft_entry.entry(device="cpu")
+    crows, crow_len = cfn(*cargs)
+    assert torch.equal(rows.cpu(), crows) and torch.equal(row_len.cpu(), crow_len)
+    chunks, lens = cargs[0].numpy(), cargs[1].numpy()
+    r, n = rows.cpu().numpy(), row_len.cpu().numpy()
+    stream = b"\xff\x06\x00\x00sNaPpY" + b"".join(r[i, : n[i]].tobytes() for i in range(4))
+    assert native.frame_decompress(stream) == b"".join(
+        chunks[i, : lens[i]].tobytes() for i in range(4))
+
+
+@pytest.mark.parametrize("mesh", ["every_card", "four_on_cuda0"])
+def test_graft_dryrun_on_the_card(dev, mesh):
+    """``dryrun_multichip`` over every card, and with four shards on
+    ``cuda:0``: every leg passes, each of its kernels launched once a mesh
+    entry."""
+    from snappy_tpu_torch import graft_entry
+    from snappy_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    n = torch.cuda.device_count() if mesh == "every_card" else 4
+    reset_launch_counts()
+    if mesh == "every_card":
+        graft_entry.dryrun_multichip(n)
+    else:
+        graft_entry.dryrun_multichip(n, device="cuda:0")
+    assert {k: v for k, v in launch_counts().items() if v} == _graft_want(n)
+
+
 def test_compress_on_the_card(dev):
     data = load_corpus("alice29.txt") + load_corpus("fireworks.jpeg")[:70000] + b"tail" * 999
     parse.launches = 0

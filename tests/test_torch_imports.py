@@ -30,6 +30,7 @@ PORT_MODULES = [
     "snappy_tpu_torch.error",
     "snappy_tpu_torch.format.reference",
     "snappy_tpu_torch.frame",
+    "snappy_tpu_torch.graft_entry",
     "snappy_tpu_torch.native",
     "snappy_tpu_torch.ops._build",
     "snappy_tpu_torch.ops.api",

@@ -13,7 +13,8 @@ import torch
 from snappy_tpu.ops import resolve as jres
 from snappy_tpu_torch.ops import resolve
 from torch_vectors import (
-    hold_jax_native, raw_body, resolve_cases, scan_batch, share_cores_with_workers,
+    hold_jax_native, jax_call_outputs, raw_body, resolve_cases, scan_batch,
+    share_cores_with_workers,
 )
 
 share_cores_with_workers()
@@ -26,11 +27,10 @@ CUT_ROWS = [(b"\x61", 3), (b"\x00a\x1d\x01", 5)]
 
 def _compare(rows, d_pad, use_fused):
     srcs, lens, declens, recs, nops, errs = scan_batch(rows)
-    want_out, want_fb = jres.decode_resolve_batch(
-        srcs, recs, nops, declens.astype(np.int64), d_pad,
+    want_out, want_fb = jax_call_outputs(
+        jres.decode_resolve_batch, srcs, recs, nops, declens.astype(np.int64), d_pad,
         interpret=True, use_pallas=use_fused, use_fused=use_fused,
     )
-    want_out, want_fb = np.asarray(want_out), np.asarray(want_fb)
     t = [torch.from_numpy(x) for x in (srcs, recs, nops.astype(np.int32), declens)]
     out, fb = resolve.decode_resolve_batch(*t, d_pad, use_fused=use_fused)
     assert out.dtype == torch.uint8 and fb.dtype == torch.int32

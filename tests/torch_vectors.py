@@ -318,9 +318,23 @@ def jax_entry_outputs(entry, mesh, *args, **kwargs) -> list[np.ndarray]:
     size, every argument (an array's dtype, shape and bytes, else its
     ``repr``), JAX's version and the JAX package's sources, so a changed
     input or package computes them anew."""
+    return _jax_outputs(f"{entry.__name__} {mesh.devices.size}", entry.__name__,
+                        lambda: entry(mesh, *args, **kwargs), args, kwargs)
+
+
+def jax_call_outputs(fn, *args, **kwargs) -> list[np.ndarray]:
+    """``fn(*args, **kwargs)``'s outputs as numpy arrays, computed once for
+    every test file and worker that asks, as :func:`jax_entry_outputs` keeps
+    them: for a JAX call that runs a Pallas kernel in interpret mode (the
+    fused resolution takes ~35 s on the CPU), which two files make."""
+    name = f"{fn.__module__}.{fn.__name__}"
+    return _jax_outputs(name, name, lambda: fn(*args, **kwargs), args, kwargs)
+
+
+def _jax_outputs(tag: str, stem: str, call, args, kwargs) -> list[np.ndarray]:
     import jax
 
-    h = hashlib.sha256(f"{entry.__name__} {mesh.devices.size} {jax.__version__}".encode())
+    h = hashlib.sha256(f"{tag} {jax.__version__}".encode())
     for a in (*args, *sorted(kwargs.items())):
         if isinstance(a, np.ndarray):
             a = np.ascontiguousarray(a)
@@ -331,7 +345,7 @@ def jax_entry_outputs(entry, mesh, *args, **kwargs) -> list[np.ndarray]:
     _jax_package_hash(h)
 
     def compute():
-        out = entry(mesh, *args, **kwargs)
+        out = call()
         return [np.asarray(x) for x in (out if isinstance(out, tuple) else (out,))]
 
     def load(path):
@@ -339,7 +353,7 @@ def jax_entry_outputs(entry, mesh, *args, **kwargs) -> list[np.ndarray]:
             return [z[f"a{i}"] for i in range(len(z.files))]
 
     return _computed_once(
-        REPO / "build" / "jax_outputs" / f"{entry.__name__}-{h.hexdigest()[:16]}.npz", compute,
+        REPO / "build" / "jax_outputs" / f"{stem}-{h.hexdigest()[:16]}.npz", compute,
         lambda tmp, out: np.savez(tmp, **{f"a{i}": x for i, x in enumerate(out)}), load,
     )
 
