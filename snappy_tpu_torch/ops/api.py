@@ -36,12 +36,21 @@ PyTorch versions run instead, which is how the CPU tests hold the port
 against the JAX package.
 
 Setting :data:`spans` to ``{}`` times the parts of every call that
-follows, for a breakdown of the end-to-end time taken from the same run.
+follows, for a breakdown of the end-to-end time taken from the same run;
+setting :data:`records` to ``[]`` keeps one record a part a call, with its
+call, parent, thread, clock times, host CPU, page faults and bytes. Both
+are views of one recorder, :func:`_span`, which waits for the card only
+when a call ends.
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
+import functools
+import itertools
+import resource
+import threading
 import time
 
 import numpy as np
@@ -75,20 +84,52 @@ from .replay import OK, decode_replay
 from .resolve import decode_resolve_batch
 
 #: Seconds spent in each part of the decodes and compresses run while this
-#: is a dict (set it to ``{}`` to start, ``None`` to stop). Host parts are
-#: timed with ``time.perf_counter``: ``walk`` (frame chunk walk), ``pack``
-#: (splitting, grouping and padding rows), ``flatten`` (native index
-#: flatten), ``scan`` (native op-record scan), ``h2d`` and ``d2h``
-#: (copies), ``host_decode`` (oversized rows), ``unpack`` (rows to bytes),
-#: ``stored_crc`` (checksums of uncompressed chunks) and ``join``. Device parts are timed between CUDA
-#: events and synchronised while timing is on, so that no host part
-#: includes waiting for them: ``kernels`` (the launches), for the fast
-#: compress ``prepass`` and ``plan`` (the tensor ops before K4 and before
-#: K5), for the resolve route ``plan`` (its tensor ops around K8 or K9), for
-#: the tensor decode routes ``tensor`` (their tensor ops and CRC launch), and
-#: for the device frame writer ``assemble`` (the chunk framing). ``scan``
-#: also times the host's op-start bitmaps of the hosted tensor route.
+#: is a dict (set it to ``{}`` to start, ``None`` to stop), added when each
+#: call ends. Host parts are timed with ``time.perf_counter_ns``: ``walk``
+#: (frame chunk walk), ``pack`` (splitting, grouping and padding rows, the
+#: call's own buffers, and the configuration and device that a decode call
+#: and each of its launch groups read to choose their route: every field's
+#: environment variable, each time), ``flatten`` (native index
+#: flatten, and its fallback check), ``scan`` (native op-record scan),
+#: ``h2d`` and ``d2h`` (copies; the flatten's indices are let go in the
+#: ``h2d`` that copies them), ``host_decode`` (oversized rows), ``unpack``
+#: (rows to bytes), ``stored_crc`` (checksums of uncompressed chunks and
+#: the check of every chunk's) and ``join`` (and letting go of the chunks'
+#: buffers).
+#: Device parts are timed between two CUDA events and wait for nothing:
+#: ``kernels`` (the launches), for the fast compress ``prepass`` and
+#: ``plan`` (the tensor ops before K4 and before K5), for the resolve route
+#: ``plan`` (its tensor ops around K8 or K9), for the tensor decode routes
+#: ``tensor`` (their tensor ops and CRC launch), and for the device frame
+#: writer ``assemble`` (the chunk framing). A host part leaves out the
+#: time that the call's device parts before it ran while it was open (its
+#: record's ``wait_s``: the ``d2h`` after K2 and K1 waits for them), so the
+#: parts add up to no more than the call. ``scan`` also times the host's
+#: op-start bitmaps of the hosted tensor route.
 spans: dict[str, float] | None = None
+
+#: One record a part of every call run while this is a list (set it to
+#: ``[]`` to start, ``None`` to stop), a call's records appended when the
+#: call ends. Each is a dict: ``call`` (the id of the public call it
+#: belongs to: its root record's ``id``), ``id``, ``parent`` (``None`` on a
+#: root), ``name`` (a part named as in :data:`spans`, or on a root the
+#: public entry: ``decompress_frame``, ``decompress_streams``,
+#: ``decompress``, ``compress``, ``read.FrameDecoder``,
+#: ``write.FrameEncoder``), ``thread`` (its native id), ``t0_ns`` and
+#: ``t1_ns`` (``time.perf_counter_ns``), ``cpu_user_s``, ``cpu_sys_s`` and
+#: ``minflt`` (the process's ``getrusage`` across the part: every thread,
+#: the flatten's included), ``bytes`` (those the part moves or makes: the
+#: stream walked, the ``nbytes`` copied in or back, the flatten's indices
+#: and tile meta, the bytes unpacked, checksummed or joined; else 0) and
+#: ``device_s`` (a device part's seconds between its two CUDA events, else
+#: ``None``) and ``wait_s`` (how long the call's earlier device parts ran
+#: while a host part was open, as their events place them: the wait of a
+#: copy back for the kernels before it; 0 on a device part). A root also
+#: keeps ``anchor``, ``(time.time_ns(), time.perf_counter_ns())`` read as
+#: it opened, which places its call's clock times on a ``torch.profiler``
+#: trace's: a time ``t`` is at ``(anchor[0] + t - anchor[1] -
+#: baseTimeNanoseconds) / 1000`` µs of the trace's ``ts``.
+records: list[dict] | None = None
 
 #: The route each decode launch group took, in order, while this is a list
 #: (set it to ``[]`` to start, ``None`` to stop): ``(rows, d_pad, route)``
@@ -96,34 +137,173 @@ spans: dict[str, float] | None = None
 #: ``"resolve"``, ``"parallel_hosted"`` and ``"parallel"``.
 routes: list[tuple[int, int, str]] | None = None
 
+#: ``(call, id)`` of the innermost open part in this context; a sharded
+#: entry's shard threads run in a copy of their caller's context, so their
+#: parts take the caller's as parent.
+_current: contextvars.ContextVar[tuple[int, int] | None] = contextvars.ContextVar(
+    "snappy_tpu_torch_span", default=None)
+_ids = itertools.count(1)
+#: Each open call's closed records and its device parts' events, by call.
+_open: dict[int, tuple[list[dict], list]] = {}
+
+
+def _label(name: str):
+    """Open a range named ``name`` of a running ``torch.profiler`` trace
+    (the range ``record_function`` makes, opened without its operator
+    dispatch, so that little of its cost falls between two ranges); returns
+    its handle for :func:`_unlabel`, ``None`` with no profiler running."""
+    if torch.autograd._profiler_enabled():
+        return torch.autograd._record_function_with_args_enter(name)
+    return None
+
+
+def _unlabel(handle) -> None:
+    if handle is not None:
+        torch.autograd._record_function_with_args_exit(handle)
+
 
 @contextlib.contextmanager
-def _span(name: str, dev: torch.device | None = None):
-    """Add the ``with`` body's time to ``spans[name]`` when timing is on;
-    with a CUDA ``dev``, the device time of what it launches. Under a
-    running ``torch.profiler`` (``utils.profiling.device_trace``) the body
-    is also a labelled range of the trace, so its host gaps carry names."""
-    if spans is None:
-        if torch.autograd._profiler_enabled():
-            with torch.profiler.record_function(name):
-                yield
-        else:
+def _span(name: str, dev: torch.device | None = None, nbytes: int = 0, root: bool = False):
+    """One part of a call, ``name``, for :data:`spans` and :data:`records`
+    while either is on; with a CUDA ``dev``, the device time of what it
+    launches. ``nbytes`` is what the part moves or makes. A part opened in
+    no call opens one; ``root=True`` marks a public entry, which inside an
+    open call joins that call and records nothing. Under a running
+    ``torch.profiler`` (``utils.profiling.device_trace``) the body is also a
+    labelled range of the trace, so its host gaps carry names. With both
+    views off it costs no clock, ``getrusage`` or event."""
+    if spans is None and records is None:
+        if not torch.autograd._profiler_enabled():
             yield
+            return
+        handle = _label(name)
+        try:
+            yield
+        finally:
+            _unlabel(handle)
         return
+    cur = _current.get()
+    if root and cur is not None:
+        yield
+        return
+    sid = next(_ids)
+    # The part's own bookkeeping lies between t0 and t1, and inside its
+    # profiler range, so that the gaps between parts hold only the caller's
+    # work and a record starts where its range does.
+    t0 = time.perf_counter_ns()
+    if cur is None:
+        anchor = (time.time_ns(), time.perf_counter_ns())
+    handle = _label(name)
+    call = sid if cur is None else cur[0]
+    if cur is None:
+        _open[call] = ([], [])
+    token = _current.set((call, sid))
+    events = None
     if dev is not None and dev.type == "cuda":
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        yield
-        stop.record()
+        events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+    keep = records is not None  # host CPU and faults only for the records
+    ru0 = resource.getrusage(resource.RUSAGE_SELF) if keep else None
+    try:
+        if events is not None:
+            queued = time.perf_counter_ns()
+            events[0].record()
+        try:
+            yield
+        finally:
+            if events is not None:
+                events[1].record()
+    finally:
+        ru1 = resource.getrusage(resource.RUSAGE_SELF) if keep else None
+        _current.reset(token)
+        rec = {"call": call, "id": sid, "parent": None if cur is None else cur[1],
+               "name": name, "thread": threading.get_native_id(), "t0_ns": t0, "t1_ns": t0,
+               "cpu_user_s": ru1.ru_utime - ru0.ru_utime if keep else None,
+               "cpu_sys_s": ru1.ru_stime - ru0.ru_stime if keep else None,
+               "minflt": ru1.ru_minflt - ru0.ru_minflt if keep else None,
+               "bytes": nbytes, "device_s": None, "wait_s": 0.0}
+        done, pending = _open[call]
+        done.append(rec)
+        if events is not None:
+            pending.append((rec, queued, *events))
+        _unlabel(handle)
+        rec["t1_ns"] = time.perf_counter_ns()
+        if cur is None:
+            rec["anchor"] = anchor
+            _end_call(call, entry=root)
+
+
+def _resolve(pending) -> list[tuple[int, int, int, int]]:
+    """Each device part's seconds between its two events. A call's own copy
+    back has waited for its launches, so the events are done by now.
+    Returns where each ran on the host's clock, ``(thread, closed, start,
+    end)`` in ns: from when its first event was queued, or when the
+    thread's device part before it ended if later, for its seconds."""
+    ran, last = [], {}
+    for rec, queued, start, stop in pending:
         stop.synchronize()
-        dt = start.elapsed_time(stop) / 1e3
-    else:
-        t0 = time.perf_counter()
-        yield
-        dt = time.perf_counter() - t0
-    spans.setdefault(name, 0.0)
-    _build.count(spans, name, dt)
+        rec["device_s"] = start.elapsed_time(stop) / 1e3
+        th = rec["thread"]
+        a = max(queued, last.get(th, queued))
+        last[th] = b = a + round(rec["device_s"] * 1e9)
+        ran.append((th, rec["t1_ns"], a, b))
+    return ran
+
+
+def _set_waits(done: list[dict], ran: list[tuple[int, int, int, int]]) -> None:
+    """Each host part's ``wait_s``: how long the device parts that its
+    thread closed before it opened ran while it was open. :data:`spans`
+    leaves that time out of the host part, which keeps the parts disjoint:
+    what the card ran belongs to the device part that launched it, also
+    where a host part (the copy back) waited for it."""
+    if not ran:
+        return
+    for rec in done:
+        if rec["device_s"] is None:
+            t0, t1, th = rec["t0_ns"], rec["t1_ns"], rec["thread"]
+            rec["wait_s"] = sum(max(0, min(t1, b) - max(t0, a))
+                                for th_d, closed, a, b in ran
+                                if th_d == th and closed <= t0) / 1e9
+
+
+def _end_call(call: int, entry: bool) -> None:
+    """Hand the records of the call that just ended to the views that are on:
+    all of them to :data:`records`, and but an entry's root, by name, to
+    :data:`spans`: a device part's seconds on the card, a host part's on the
+    host's clock less its ``wait_s``."""
+    done, pending = _open.pop(call)
+    _set_waits(done, _resolve(pending))
+    by_name, out = spans, records
+    if by_name is not None:
+        for rec in done[:-1] if entry else done:
+            dt = rec["device_s"]
+            if dt is None:
+                dt = (rec["t1_ns"] - rec["t0_ns"]) / 1e9 - rec["wait_s"]
+            by_name.setdefault(rec["name"], 0.0)
+            _build.count(by_name, rec["name"], dt)
+    if out is not None:
+        out.extend(done)
+
+
+def _tracing() -> bool:
+    """Whether a view of the recorder or a profiler is on."""
+    return spans is not None or records is not None or torch.autograd._profiler_enabled()
+
+
+def _as_call(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` as a call whose root part is ``name``; straight
+    through while :func:`_tracing` is false."""
+    if not _tracing():
+        return fn(*args, **kwargs)
+    with _span(name, root=True):
+        return fn(*args, **kwargs)
+
+
+def _entry(fn):
+    """Run the public entry ``fn`` as a call: a root part named after it."""
+    @functools.wraps(fn)
+    def entry(*args, **kwargs):
+        return _as_call(fn.__name__, fn, *args, **kwargs)
+    return entry
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -142,6 +322,7 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return dev
 
 
+@_entry
 def compress(
     data: bytes, profile: str = "exact", device: str | torch.device | None = None
 ) -> bytes:
@@ -177,6 +358,7 @@ def compress(
     with _span("pack"):
         blocks, lengths = packing.blocks_of(data)
     parts = [write_varu64(n)]
+    size = len(parts[0])
     bpl = get_config().blocks_per_launch
     for start in range(0, blocks.shape[0], bpl):
         with _span("pack"):
@@ -188,9 +370,11 @@ def compress(
                 bb = np.concatenate([bb, np.zeros((padded - want, bb.shape[1]), bb.dtype)])
                 ll = np.concatenate([ll, np.zeros(padded - want, ll.dtype)])
         outs, outlens = codec(bb, ll, dev, span=_span)
-        with _span("join"):
+        made = int(outlens[:want].sum())
+        size += made
+        with _span("join", nbytes=made):
             parts.extend(outs[i, : int(outlens[i])].tobytes() for i in range(want))
-    with _span("join"):
+    with _span("join", nbytes=size):
         return b"".join(parts)
 
 
@@ -205,6 +389,7 @@ def _check_header(data: bytes) -> tuple[int, int]:
     return declen, hdr
 
 
+@_entry
 def decompress(data: bytes, device: str | torch.device | None = None) -> bytes:
     """Decompress one raw Snappy stream on the device.
 
@@ -268,19 +453,20 @@ def _record_cap(width: int) -> int:
     return -(-min(16384, width // 2 + 1) // 512) * 512
 
 
-def _scan_route(srcs, lens64, decl64, srcs_t, declens_t, d_pad, cfg):
+def _scan_route(srcs, lens, declens, srcs_t, declens_t, d_pad, cfg):
     """The record-scan routes of one launch group: K10 under
     ``decode_records``, K8 then K2 under ``decode_resolve``. Returns
     ``(dst, errs)``, or ``None`` where the group falls through (a record-cap
     overflow, or a resolve fallback flag)."""
     rec_cap = _record_cap(srcs.shape[1])
     with _span("scan"):
-        recs, nops, herrs, _ = native.scan_records_batch(srcs, lens64, decl64, rec_cap)
+        recs, nops, herrs, _ = native.scan_records_batch(
+            srcs, np.asarray(lens, np.uint64), np.asarray(declens, np.uint64), rec_cap)
     n_max = int(nops.max(initial=0))
     if n_max > rec_cap:
         return None
     r_pad = max(512, -(-n_max // 512) * 512)
-    with _span("h2d"):
+    with _span("h2d", nbytes=recs[:, :r_pad].nbytes + 4 * len(nops)):
         recs_t = torch.from_numpy(np.ascontiguousarray(recs[:, :r_pad])).to(srcs_t.device)
         nops_t = torch.from_numpy(nops.astype(np.int32)).to(srcs_t.device)
     if cfg.decode_records:
@@ -305,14 +491,14 @@ def _tensor_route(srcs, lens, srcs_t, declens_t, d_pad, scan: bool, with_crc: bo
     the host's op-start bitmaps when ``scan``, else all on the device.
     Returns ``(dst, err tensor, crc tensor or None)``."""
     dev = srcs_t.device
-    with _span("h2d"):
+    with _span("h2d", nbytes=4 * len(lens)):
         lens_t = torch.from_numpy(np.asarray(lens, np.int32)).to(dev)
     args = (srcs_t, lens_t, declens_t)
     if scan:
         with _span("scan"):
             bits = np.zeros((srcs.shape[0], srcs.shape[1] // 8), np.uint8)
             native.scan_ops_batch(srcs, np.asarray(lens, np.uint64), bits)
-        with _span("h2d"):
+        with _span("h2d", nbytes=bits.nbytes):
             args += (torch.from_numpy(bits).to(dev),)
     if scan:
         fn = decode_crc_batch_hosted if with_crc else decode_batch_hosted
@@ -343,55 +529,60 @@ def decode_group(srcs: np.ndarray, lens: np.ndarray, declens: list[int], d_pad: 
     uint8 on dev, errs (B,) int32 numpy, crcs (B,) int64 on dev or
     None)``; the CRCs (K1) when ``with_crc``.
     """
-    cfg = get_config()
-    scan, kernels = decode_routes(cfg)
-    kernels = kernels and d_pad <= cfg.max_dpad
-    lens64 = np.asarray(lens, np.uint64)
-    decl64 = np.asarray(declens, np.uint64)
-    with _span("h2d"):
+    with _span("pack"):
+        cfg = get_config()
+        scan, kernels = decode_routes(cfg)
+        kernels = kernels and d_pad <= cfg.max_dpad
+        scanned = kernels and scan  # the kernel routes that start from a host scan
+        use_records = scanned and cfg.decode_records
+        resolve_ok = d_pad % 16384 == 0 and d_pad <= 65536 and srcs.shape[1] <= 65536
+        layout = 1 if d_pad % 16384 == 0 else 0
+    with _span("h2d", nbytes=srcs.nbytes + 4 * len(declens)):
         srcs_t = torch.from_numpy(srcs).to(dev)
         declens_t = torch.from_numpy(np.asarray(declens, np.int32)).to(dev)
     got, crc = None, None
-    scanned = kernels and scan  # the kernel routes that start from a host scan
-    use_records = scanned and cfg.decode_records
-    resolve_ok = d_pad % 16384 == 0 and d_pad <= 65536 and srcs.shape[1] <= 65536
     if use_records or (scanned and cfg.decode_resolve and resolve_ok):
-        got = _scan_route(srcs, lens64, decl64, srcs_t, declens_t, d_pad, cfg)
+        got = _scan_route(srcs, lens, declens, srcs_t, declens_t, d_pad, cfg)
         route = "records" if use_records else "resolve"
     if got is None and scanned and cfg.decode_flat and not use_records:
-        layout = 1 if d_pad % 16384 == 0 else 0
-        with _span("flatten"):
+        # idx (rows, d_pad) uint16 and tmeta (rows, d_pad // 1024, 2) int32
+        with _span("flatten", nbytes=srcs.shape[0] * (2 * d_pad + 8 * (d_pad // 1024))):
             idx, tmeta, fallb, herrs, _ = native.flatten_idx_batch(
-                srcs, lens64, decl64, d_pad, layout=layout
+                srcs, np.asarray(lens, np.uint64), np.asarray(declens, np.uint64), d_pad,
+                layout=layout,
             )
-        if not fallb.any():
-            with _span("h2d"):
+            fell = fallb.any()
+        if not fell:
+            with _span("h2d", nbytes=idx.nbytes + tmeta.nbytes):
                 idx_t = torch.from_numpy(idx.view(np.int16)).to(dev)
                 tmeta_t = torch.from_numpy(tmeta).to(dev)
+                del idx, tmeta  # the copies' sources go here, not as the group returns
             with _span("kernels", dev):
                 got = decode_flat(srcs_t, idx_t, tmeta_t, declens_t, d_pad, layout), herrs
             route = "flat"
     if got is None and kernels and srcs.shape[1] <= cfg.replay_max_body:
-        with _span("h2d"):
+        with _span("h2d", nbytes=4 * len(lens)):
             lens_t = torch.from_numpy(np.asarray(lens, np.int32)).to(dev)
         with _span("kernels", dev):
             dst, gerrs = decode_replay(srcs_t, lens_t, declens_t, d_pad)
-        with _span("d2h"):
+        with _span("d2h", nbytes=gerrs.nbytes):
             got = dst, gerrs.cpu().numpy()
         route = "replay"
     if got is None:
         dst, gerrs, crc = _tensor_route(srcs, lens, srcs_t, declens_t, d_pad, scan, with_crc)
-        with _span("d2h"):
+        with _span("d2h", nbytes=gerrs.nbytes):
             got = dst, gerrs.cpu().numpy()
         route = "parallel_hosted" if scan else "parallel"
     elif with_crc:
         with _span("kernels", dev):
             crc = crc32c_masked_blocks(got[0], declens_t)
     if routes is not None:
-        routes.append((len(declens), d_pad, route))
+        with _span("pack"):
+            routes.append((len(declens), d_pad, route))
     return (*got, crc)
 
 
+@_entry
 def decompress_streams(
     bodies: list[bytes],
     declens: list[int],
@@ -407,23 +598,23 @@ def decompress_streams(
     returns each output's masked CRC32C, computed on the device before
     the bytes leave it.
     """
-    dev = resolve_device(device)
+    with _span("pack"):
+        dev = resolve_device(device)
+        cfg = get_config()
     if not bodies:
         return [], np.zeros(0, np.int32), (np.zeros(0, np.uint32) if with_crc else None)
 
-    cfg = get_config()
-    outs: list[bytes] = [b""] * len(bodies)
-    errs = np.zeros(len(bodies), np.int32)
-    crcs = np.zeros(len(bodies), np.uint32) if with_crc else None
-
     scan, _ = decode_routes(cfg)
     with _span("pack"):
+        outs: list[bytes] = [b""] * len(bodies)
+        errs = np.zeros(len(bodies), np.int32)
+        crcs = np.zeros(len(bodies), np.uint32) if with_crc else None
         groups = launch_groups(bodies, cfg.decode_rows_per_launch)
     for idxs in groups:
-        group = [bodies[i] for i in idxs]
-        gdecl = [declens[i] for i in idxs]
-        d_pad = packing.pad_to_bucket(max(max(gdecl), 1), 1024)
         with _span("pack"):
+            group = [bodies[i] for i in idxs]
+            gdecl = [declens[i] for i in idxs]
+            d_pad = packing.pad_to_bucket(max(max(gdecl), 1), 1024)
             srcs, lens = packing.batch_streams(group, _width_bucket(len(group[0])))
         if d_pad > cfg.max_dpad and scan:
             # Oversized rows (multi-MB raw streams; frame chunks never get
@@ -442,17 +633,18 @@ def decompress_streams(
                     outs[idxs[j]] = decoded[k]
                     if with_crc:
                         crcs[idxs[j]] = native.crc32c_masked(decoded[k])
+                errs[idxs] = gerrs
         else:
             dst, gerrs, gcrc = decode_group(srcs, lens, gdecl, d_pad, dev, with_crc)
-            with _span("d2h"):
+            with _span("d2h", nbytes=dst.nbytes + (gcrc.nbytes if with_crc else 0)):
                 gcrc = gcrc.cpu().numpy() if with_crc else None
                 dst = dst.cpu().numpy()
-            with _span("unpack"):
+            with _span("unpack", nbytes=sum(gdecl)):
                 for j, i in enumerate(idxs):
                     outs[i] = dst[j, : gdecl[j]].tobytes()
                     if gcrc is not None:
                         crcs[i] = gcrc[j]
-        errs[idxs] = gerrs
+                errs[idxs] = gerrs
         if cfg.debug:
             _debug_check_streams(group, gdecl, [outs[i] for i in idxs], gerrs)
     return outs, errs, crcs
@@ -483,6 +675,7 @@ def _debug_check_streams(bodies, declens, outs, errcodes) -> None:
             )
 
 
+@_entry
 def decompress_frame(data: bytes, device: str | torch.device | None = None) -> bytes:
     """Decode a whole frame-format buffer with batched device kernels.
 
@@ -494,7 +687,8 @@ def decompress_frame(data: bytes, device: str | torch.device | None = None) -> b
     (decode errors precede the chunk's checksum check), and the earliest
     failure wins.
     """
-    dev = resolve_device(device)
+    with _span("pack"):
+        dev = resolve_device(device)
     pos = 0
     n = len(data)
     read_ident = False
@@ -502,6 +696,7 @@ def decompress_frame(data: bytes, device: str | torch.device | None = None) -> b
     #  known_error or None) in stream order.
     datachunks = []
     pending: Exception | None = None  # first structural error, if any
+    stored = 0  # bytes of the uncompressed chunks' bodies
 
     def _need(k: int) -> bytes:
         nonlocal pos
@@ -511,7 +706,7 @@ def decompress_frame(data: bytes, device: str | torch.device | None = None) -> b
         pos += k
         return out
 
-    with _span("walk"):
+    with _span("walk", nbytes=n):
         try:
             while pos < n:
                 header = _need(4)
@@ -544,6 +739,7 @@ def decompress_frame(data: bytes, device: str | torch.device | None = None) -> b
                     if len(body) > MAX_BLOCK_SIZE:
                         raise err.UnsupportedChunkLength(len=len(body), header=False)
                     datachunks.append((1, body, crc, len(body), None))
+                    stored += len(body)
                 else:
                     assert ty == CHUNK_TYPE_COMPRESSED
                     # Mirror the sequential reader: decompress_len, the
@@ -569,43 +765,45 @@ def decompress_frame(data: bytes, device: str | torch.device | None = None) -> b
         except (err.SnappyError, EOFError) as e:
             pending = e
 
-    comp_idx = [i for i, c in enumerate(datachunks) if c[0] == 0 and c[4] is None]
-    # Uncompressed chunks pass through; known-error chunks contribute no
-    # bytes (their error is raised before their checksum would be read).
-    outputs = [c[1] if c[0] == 1 else b"" for c in datachunks]
-    errcodes = np.zeros(len(comp_idx), np.int32)
-    got_crc = np.zeros(len(datachunks), np.uint32)
+    with _span("pack"):
+        comp_idx = [i for i, c in enumerate(datachunks) if c[0] == 0 and c[4] is None]
+        # Uncompressed chunks pass through; known-error chunks contribute no
+        # bytes (their error is raised before their checksum would be read).
+        outputs = [c[1] if c[0] == 1 else b"" for c in datachunks]
+        errcodes = np.zeros(len(comp_idx), np.int32)
+        got_crc = np.zeros(len(datachunks), np.uint32)
+        bodies = [datachunks[i][1] for i in comp_idx]
+        declens = [datachunks[i][3] for i in comp_idx]
     if comp_idx:
-        outs, errcodes, comp_crc = decompress_streams(
-            [datachunks[i][1] for i in comp_idx],
-            [datachunks[i][3] for i in comp_idx],
-            with_crc=True,
-            device=dev,
-        )
-        for j, i in enumerate(comp_idx):
-            outputs[i] = outs[j]
-            got_crc[i] = comp_crc[j]
+        outs, errcodes, comp_crc = decompress_streams(bodies, declens, with_crc=True, device=dev)
+        with _span("unpack"):
+            for j, i in enumerate(comp_idx):
+                outputs[i] = outs[j]
+                got_crc[i] = comp_crc[j]
+            del outs
 
     if datachunks:
         # Uncompressed chunks: checksum their host-resident payloads with
-        # the host engine's hardware CRC.
-        with _span("stored_crc"):
+        # the host engine's hardware CRC; then every chunk's check.
+        with _span("stored_crc", nbytes=stored):
             for i, c in enumerate(datachunks):
                 if c[0] == 1:
                     got_crc[i] = native.crc32c_masked(c[1])
-        exp_crc = np.array([c[2] for c in datachunks], np.uint32)
-        bad_dec = {i: int(e) for i, e in zip(comp_idx, errcodes) if int(e) != OK}
-        bad_crc = set(np.nonzero(got_crc != exp_crc)[0].tolist())
-        for i, chunk in enumerate(datachunks):
-            if chunk[4] is not None:
-                raise chunk[4]
-            if i in bad_dec:
-                ref.decompress(write_varu64(chunk[3]) + chunk[1])
-                raise err.HeaderMismatch(expected_len=chunk[3], got_len=-1)
-            if i in bad_crc:
-                raise err.Checksum(expected=int(exp_crc[i]), got=int(got_crc[i]))
+            exp_crc = np.array([c[2] for c in datachunks], np.uint32)
+            bad_dec = {i: int(e) for i, e in zip(comp_idx, errcodes) if int(e) != OK}
+            bad_crc = set(np.nonzero(got_crc != exp_crc)[0].tolist())
+            for i, chunk in enumerate(datachunks):
+                if chunk[4] is not None:
+                    raise chunk[4]
+                if i in bad_dec:
+                    ref.decompress(write_varu64(chunk[3]) + chunk[1])
+                    raise err.HeaderMismatch(expected_len=chunk[3], got_len=-1)
+                if i in bad_crc:
+                    raise err.Checksum(expected=int(exp_crc[i]), got=int(got_crc[i]))
 
     if pending is not None:
         raise pending
-    with _span("join"):
-        return b"".join(outputs)
+    with _span("join", nbytes=stored + sum(declens)):
+        out = b"".join(outputs)
+        del outputs, bodies, datachunks  # the chunks' buffers go here, not as the call returns
+        return out

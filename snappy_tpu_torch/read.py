@@ -151,20 +151,9 @@ class FrameDecoder(io.RawIOBase):
                 and not self._read_stream_ident
                 and not self._dst
             ):
-                rest = bytearray()
-                while True:
-                    piece = self._r.read(1 << 20)
-                    if not piece:
-                        break
-                    rest += piece
-                self._read_stream_ident = True
-                if self._engine.name == "native":
-                    from . import native
-
-                    return native.frame_decompress(bytes(rest))
                 from .ops import api
 
-                return api.decompress_frame(bytes(rest))
+                return api._as_call("read.FrameDecoder", self._read_rest)
             out = bytearray()
             while True:
                 chunk = self.read(io.DEFAULT_BUFFER_SIZE)
@@ -188,7 +177,13 @@ class FrameDecoder(io.RawIOBase):
         On the native engine this decodes a bounded *segment* of wire
         bytes per call, chunk-parallel across host cores, while keeping
         the sequential reader's exact error order (see ``_fill_segment``).
+        Each fill is one call of ``ops.api``'s recorder.
         """
+        from .ops import api
+
+        return api._as_call("read.FrameDecoder", self._fill_chunks)
+
+    def _fill_chunks(self) -> bool:
         while True:
             if self._engine.name == "native" and not self._seq_mode:
                 r = self._fill_segment()
@@ -196,6 +191,23 @@ class FrameDecoder(io.RawIOBase):
                     continue
                 return r
             return self._fill_one()
+
+    def _read_rest(self) -> bytes:
+        """The whole remaining stream, read and decoded at once."""
+        rest = bytearray()
+        while True:
+            piece = self._r.read(1 << 20)
+            if not piece:
+                break
+            rest += piece
+        self._read_stream_ident = True
+        if self._engine.name == "native":
+            from . import native
+
+            return native.frame_decompress(bytes(rest))
+        from .ops import api
+
+        return api.decompress_frame(bytes(rest))
 
     def _push_back_wire(self) -> None:
         if self._wire:

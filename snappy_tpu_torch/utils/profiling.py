@@ -14,28 +14,8 @@ import json
 import os
 import sys
 import time
-from dataclasses import dataclass, field
 
 import torch
-
-
-@dataclass
-class Timer:
-    """Accumulates named wall-clock spans; ``report()`` pretty-prints."""
-
-    spans: dict[str, float] = field(default_factory=dict)
-
-    @contextlib.contextmanager
-    def span(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.spans[name] = self.spans.get(name, 0.0) + time.perf_counter() - t0
-
-    def report(self) -> str:
-        width = max((len(k) for k in self.spans), default=0)
-        return "\n".join(f"{k:<{width}} {v * 1e3:9.2f} ms" for k, v in self.spans.items())
 
 
 def _sync() -> None:

@@ -75,6 +75,12 @@ class FrameEncoder(io.RawIOBase):
             self._w.flush()
 
     def _write_chunks(self, buf: bytes) -> int:
+        """Frame ``buf`` and write it: one call of ``ops.api``'s recorder."""
+        from .ops import api
+
+        return api._as_call("write.FrameEncoder", self._frame_chunks, buf)
+
+    def _frame_chunks(self, buf: bytes) -> int:
         if not self._wrote_stream_ident:
             self._wrote_stream_ident = True
             self._w.write(STREAM_IDENTIFIER)

@@ -981,3 +981,84 @@ def test_host_against_card_tool_on_the_card(dev, name, tmp_path, monkeypatch, ca
         (run,) = out["runs"]
         assert run["backend"] == "nccl" and not run["shared_card"]
         assert kernels <= set(run["per_rank"][0]["launches"])
+
+
+@pytest.mark.parametrize("views", ["records", "spans", "both"])
+def test_a_traced_call_waits_only_in_its_resolve(dev, views, monkeypatch):
+    """With ``ops.api``'s recorder on, no part of a call synchronises: the
+    only waits are the root's resolve of its device parts' events, after the
+    call's own copy back, and every device part gets its seconds."""
+    data = (load_corpus("alice29.txt") + load_corpus("fireworks.jpeg")) * 2 + b"tail" * 1000
+    stream = native.frame_compress(data)
+    assert api.decompress_frame(stream) == data
+    waits, resolving = [], [False]
+    real_resolve, real_wait = api._resolve, torch.cuda.Event.synchronize
+
+    def resolve(pending):
+        resolving[0] = True
+        try:
+            real_resolve(pending)
+        finally:
+            resolving[0] = False
+
+    def event_wait(self):
+        waits.append(("event", resolving[0]))
+        return real_wait(self)
+
+    monkeypatch.setattr(api, "_resolve", resolve)
+    monkeypatch.setattr(torch.cuda.Event, "synchronize", event_wait)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: waits.append(("card", resolving[0])))
+    monkeypatch.setattr(api, "records", None if views == "spans" else [])
+    monkeypatch.setattr(api, "spans", None if views == "records" else {})
+    assert api.decompress_frame(stream) == data
+    assert waits and set(waits) == {("event", True)}
+    if api.records is not None:
+        device = [r for r in api.records if r["name"] == "kernels"]
+        assert len(waits) == len(device) >= 2
+        assert all(0 < r["device_s"] < 1 for r in device)
+    if api.spans is not None:
+        assert api.spans["kernels"] > 0 and "decompress_frame" not in api.spans
+
+
+def test_traced_parts_fit_the_call_and_its_trace(dev, tmp_path):
+    """With the records on under ``torch.profiler`` (host and card): the
+    parts, a host part less its ``wait_s``, add up to no more than the call;
+    the ``kernels`` parts' seconds hold the kernels the trace shows; and each
+    root record, placed on the trace by its anchor, starts within 0.5 ms of
+    its own range."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    data = (load_corpus("html_x_4") + load_corpus("fireworks.jpeg")) * 8
+    stream = native.frame_compress(data)
+    assert api.decompress_frame(stream) == data
+    api.records = []
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                assert api.decompress_frame(stream) == data
+            torch.cuda.synchronize()
+        recs = api.records
+    finally:
+        api.records = None
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    doc = json.loads(path.read_text())
+    events = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    roots = sorted((r for r in recs if r["parent"] is None), key=lambda r: r["t0_ns"])
+    ranges = sorted(float(e["ts"]) for e in events
+                    if e.get("cat") == "user_annotation" and e["name"] == "decompress_frame")
+    assert len(roots) == len(ranges) == 3
+    for root, ts in zip(roots, ranges):
+        real, perf = root["anchor"]
+        assert abs((real + root["t0_ns"] - perf - doc["baseTimeNanoseconds"]) / 1e3 - ts) < 500
+        parts = [r for r in recs if r["call"] == root["id"] and r is not root]
+        device = [r for r in parts if r["device_s"] is not None]
+        assert device and all(r["wait_s"] >= 0 for r in parts)
+        view = sum(r["device_s"] if r["device_s"] is not None
+                   else (r["t1_ns"] - r["t0_ns"]) / 1e9 - r["wait_s"] for r in parts)
+        # each device part placed from its queued event: at most a launch's latency late
+        assert view <= (root["t1_ns"] - root["t0_ns"]) / 1e9 + 50e-6 * len(device)
+    kernel_s = sum(float(e["dur"]) for e in events if e.get("cat") == "kernel") / 1e6
+    assert sum(r["device_s"] for r in recs if r["name"] == "kernels") >= kernel_s

@@ -1,4 +1,4 @@
-"""The port's utilities: ``utils.profiling`` (``Timer``, ``timed`` and
+"""The port's utilities: ``utils.profiling`` (``timed`` and
 ``device_trace`` over ``torch.profiler``) and ``utils.cpp_oracle``, the
 ctypes binding to the system C++ libsnappy, which holds the port's exact
 compress to Google's bytes, its fast profile to a stream Google's decoder
@@ -17,7 +17,7 @@ from snappy_tpu_torch import native
 from snappy_tpu_torch.format.varint import write_varu64
 from snappy_tpu_torch.ops import api
 from snappy_tpu_torch.utils import cpp_oracle as cpp
-from snappy_tpu_torch.utils.profiling import Timer, device_trace, timed
+from snappy_tpu_torch.utils.profiling import device_trace, timed
 from torch_vectors import REPO, hold_jax_native, share_cores_with_workers
 
 share_cores_with_workers()
@@ -28,20 +28,8 @@ def corpus(name: str) -> bytes:
     return (REPO / "data" / name).read_bytes()
 
 
-# The two cases of tests/test_utils.py.
-
-
-def test_timer_spans():
-    t = Timer()
-    with t.span("a"):
-        pass
-    with t.span("b"):
-        pass
-    with t.span("a"):
-        pass
-    rep = t.report()
-    assert "a" in rep and "b" in rep and "ms" in rep
-    assert t.spans["a"] >= 0 and t.spans["b"] >= 0
+# tests/test_utils.py's ``timed`` case; the port keeps no ``Timer``: its
+# spans are ``ops.api``'s recorder (tests/test_torch_trace.py).
 
 
 def test_timed_reports_throughput():
