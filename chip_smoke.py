@@ -26,7 +26,8 @@ card. Phases:
    codec's frames. The kernels' launch counts are set to 0 just before
    each and read just after it; each path must have run its own kernels
    and no other (exact compress K7 only, the writer K1 and K7, the
-   reader K1 and K2). The same frame stream is decoded again by the two
+   frame path and the reader K2 with its checksum on every launch group
+   and no K1). The same frame stream is decoded again by the two
    record-scan routes: under ``configure(decode_resolve=True)`` (K8, then
    K2 ``layout=1``, for every group the route takes; the tail group on
    the flat route) and under ``configure(decode_records=True)`` (K10 on
@@ -50,7 +51,7 @@ card. Phases:
    (``python -m snappy_tpu_torch.tools.fuzz_campaign``, legs 3, 4, 5 and
    8-12 at ``CAMPAIGN_COUNTS``, each in a process of its own, all at once):
    no divergence and no fault, and each leg's launches show the kernels of
-   its table (K1 and K2 in leg 5, K2 in legs 8 and 10, K10 in leg 9, K4 and
+   its table (K2 with its checksum in leg 5, K2 in legs 8 and 10, K10 in leg 9, K4 and
    both entries of K6 in leg 11, K8 and K2 in leg 12), with the reason where
    K3 did not launch; one ``{"campaign": ...}`` line;
 6. the benchmark, ``python -m snappy_tpu_torch.bench``, with a deadline of
@@ -139,7 +140,11 @@ lengths and on the frame's largest launch group (455 decoded rows with the
 chunks' lengths, as the flat route checks them; its CRCs also against the
 host codec's): ``ms`` and ``group_ms`` device-only (50 wrapper calls in a
 CUDA graph), ``call_ms`` and ``group_call_ms`` over calls, and the
-wrapper's host time a call on the host's clock. K5's ``ms`` is
+wrapper's host time a call on the host's clock. K2 with the frame
+checksum (``flat_gather_crc``, the frame path's one kernel) is held on
+the 455-row group against K2's bytes, K1's CRCs and the host codec's, and
+timed as K2 is, beside K2 then K1 on the same group (``pair_ms``); its
+bound counts K2's bytes. K5's ``ms`` is
 device-only too (its wrapper's calls in a graph), beside ``call_ms``, and
 its walk followed in numpy (``emit.fused_emit_walk``) must give the plain
 version's indices on the compress group's first 16 rows.
@@ -772,7 +777,7 @@ def examples_on_the_card(data: bytes, frame: bytes, declens: list[int], run_coun
     piece) must give the host codec's frame, ``decompress`` of it (K2 on
     each compressed chunk, whose decoded lengths are ``declens``) the
     stream, and ``compress_escaped`` (its short frame written on the host,
-    read back by K2 and K1) the lines of the host engine's run, which the
+    read back by K2 with its checksum) the lines of the host engine's run, which the
     CPU tests hold to the JAX example's. Then the two stream examples as
     processes of their own, piped into each other on a corpus file.
     ``run_counted(path, fn, want)`` runs ``fn`` with the counts reset and
@@ -795,7 +800,7 @@ def examples_on_the_card(data: bytes, frame: bytes, declens: list[int], run_coun
     check(got == data, "the decompress example did not give back the stream")
     arg = "hello\tworld 'quoted' \"x\" \\ " + "abc" * 30
     lines, _ = run_counted("examples_escaped", lambda: run_example("compress_escaped", [arg]),
-                           {"crc32c": 1, "flat_gather[layout=0]": 1})
+                           {"flat_gather_crc": 1, "flat_gather[layout=0]": 1})
     host_lines = run_example("compress_escaped", [arg], engine="native")
     check(lines == host_lines and len(lines.splitlines()) == 2,
           f"compress_escaped on the card printed {lines!r}, the host engine {host_lines!r}")
@@ -867,7 +872,7 @@ def trace_flat_route(fn, out_dir: str):
     any, the time of each of the API's labelled spans within it, and the
     host ops around it), with the kernels' own busy share and each labelled
     span's time in the window. Fails if the trace holds
-    no device event of K2 or K1."""
+    no device event of K2, or one of K1 (K2 checks the chunks itself)."""
     import glob
 
     from snappy_tpu_torch.utils.profiling import device_trace
@@ -885,8 +890,8 @@ def trace_flat_route(fn, out_dir: str):
     for e in events:
         if e.get("cat") == "user_annotation":
             labelled[e["name"]] = labelled.get(e["name"], 0.0) + e["dur"]
-    check(any("flat_kernel" in n for n in names) and any("crc32c_rows_kernel" in n for n in names),
-          f"the trace holds no device event of K2 or K1 (kernels: {sorted(set(names))[:10]})")
+    check(any("flat_kernel" in n for n in names) and not any("crc32c_rows_kernel" in n for n in names),
+          f"the trace holds no device event of K2, or one of K1 (kernels: {sorted(set(names))[:10]})")
     lo = min(e["ts"] for e in events)
     hi = max(e["ts"] + e["dur"] for e in events)
 
@@ -946,14 +951,15 @@ def ncu_record() -> dict:
 #: the kernels each must launch on the card.
 CAMPAIGN_COUNTS = {3: 300, 4: 64, 5: 200, 8: 300, 9: 300, 10: 48, 11: 48, 12: 48}
 CAMPAIGN_KERNELS = {
-    5: {"crc32c", "flat_gather[layout=0]", "flat_gather[layout=1]"},
+    5: {"flat_gather_crc", "flat_gather[layout=0]", "flat_gather[layout=1]"},
     8: {"flat_gather[layout=0]"}, 9: {"records"}, 10: {"flat_gather[layout=1]"},
     11: {"parse", "shift_idx", "emit_bytes"},
     12: {"resolve_fh", "flat_gather[layout=1]"},
 }
 #: Kernels the campaign's table names for a leg where they run only on some
-#: inputs: K3 takes a launch group the host flatten rejects.
-CAMPAIGN_MAYBE = {5: {"replay"}, 8: {"replay"}}
+#: inputs: K3 takes a launch group the host flatten rejects (and K1 checks
+#: it on the frame path).
+CAMPAIGN_MAYBE = {5: {"replay", "crc32c"}, 8: {"replay"}}
 
 
 def campaign_phase(report: dict) -> None:
@@ -1036,7 +1042,7 @@ def bench_phase(report: dict) -> None:
 #: allowed), and the kernels each must launch on the card.
 TOOL_RUNS = {
     "crossover_measure": (["--sizes", "65536,1048576,16777216"], 240,
-                          {"crc32c", "flat_gather[layout=1]", "parse", "fused_emit"}),
+                          {"flat_gather_crc", "flat_gather[layout=1]", "parse", "fused_emit"}),
     "flatten_scale": (["--threads", "1,all"], 180, {"flat_gather[layout=1]", "resolve_fh"}),
     "scaling_measure": (["--ranks", "1,2", "--blocks", "8"], 240, {"encode"}),
 }
@@ -1336,6 +1342,33 @@ def main() -> int:
         check(equal, f"K2 flat gather layout {layout} differs from its plain version")
         if layout == 1:
             big_k2 = (a, got, expect, padded, absidx_t, nbytes + 4 * len(g) * (d_pad // 16384))
+            # K2 with the frame checksum, as the frame path launches it on this
+            # group: K2's bytes, K1's CRCs of them and the host codec's; timed
+            # as K2 is, beside K2 then K1; the bound is K2's bytes.
+            f_out, f_crc = decode_flat.decode_flat_crc(*a, d_pad, 1)
+            k1_crc = crc32c.crc32c_masked_blocks(got, a[3])
+            host_crc = torch.tensor([native.crc32c_masked(x) for x in plain])
+            f_equal = (torch.equal(f_out, got) and torch.equal(f_crc, k1_crc)
+                       and torch.equal(f_crc.cpu(), host_crc))
+            fused = lambda: decode_flat.decode_flat_crc(*a, d_pad, 1)  # noqa: E731
+            pair = lambda: crc32c.crc32c_masked_blocks(  # noqa: E731
+                decode_flat.decode_flat(*a, d_pad, 1), a[3])
+            kernels.append({
+                "name": "flat_gather_crc", "route": "cuda",
+                "source": "snappy_tpu_torch/csrc/flat_gather.cu",
+                "replaces": "snappy_tpu/ops/pallas/decode.py:1334 decode_flat_pallas_v2 with "
+                            "snappy_tpu/ops/pallas/crc32c.py:64 crc32c_blocks_pallas after it",
+                "shape": [len(g), srcs.shape[1], d_pad], "equal": f_equal,
+                "max_abs_err": max(max_abs_err(f_out, got), max_abs_err(f_crc, k1_crc)),
+                "ms": device_ms(fused, 50), "call_ms": cuda_ms(fused, 50),
+                "pair_ms": device_ms(pair, 50), "pair_call_ms": cuda_ms(pair, 50),
+                "plain_ms": cuda_ms(lambda: crc32c.crc32c_plain(
+                    decode_flat.decode_flat_plain(*a, d_pad, 1), a[3], True), 5),
+                "bound_ms": bnd, "bound_by": by, "library_ms": None,
+            })
+            print(f"K2 with the checksum: {kernels[-1]['ms']:.6f} ms device-only, K2 then K1 "
+                  f"{kernels[-1]['pair_ms']:.6f} (bound {bnd:.6f})")
+            check(f_equal, "K2 with the checksum differs from K2, K1 or the host codec")
 
     # -- K11 grouped flat gather (v3, v4) on the frame's largest group, as K2 gets it ----
     # With group_buckets' buckets it must give K2's bytes and the host codec's;
@@ -1968,7 +2001,9 @@ def main() -> int:
               f"a group of the {path} path left its route: {group_routes[path]}")
     for path in ("frame", "reader"):
         c = by_path[path]
-        check(c["crc32c"] >= 1, f"K1 crc32c did not run on the {path} path")
+        check(c["crc32c"] == 0 and c["flat_gather_crc"] >= 1
+              and c["flat_gather_crc"] == c["flat_gather[layout=0]"] + c["flat_gather[layout=1]"],
+              f"K2 with its checksum on every group of the {path} path, and no K1: {c}")
         check(c["flat_gather[layout=0]"] >= 1 and c["flat_gather[layout=1]"] >= 1,
               f"K2 layouts on the {path} path: {c}")
         check(c["replay"] == 0 and not any(c[k] for k in encode_names + scan_names),

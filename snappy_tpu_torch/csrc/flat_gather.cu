@@ -39,6 +39,51 @@
 //    output tile in shared memory, whose 16-byte chunks are XOR-swizzled by
 //    tile so that layout 1's column stores spread over the banks.
 // 4. The tile goes out with 16-byte stores.
+//
+// The frame checksum (kCrc, stpu_cuda_flat_gather_crc): the same kernel also
+// writes each row's masked CRC32C of its first declen bytes, as K1 would of
+// the output, so the frame read needs no K1 after it. kCrc is a template
+// parameter: the instance without it (K2, K11) is the code above alone. A
+// CRC register is linear over GF(2): the raw register of A || B from 0 is
+// M_|B|(R(A)) ^ R(B), where M_n advances a register past n zero bytes. An
+// M_n is held as eight nibble tables of 16 words (128 words) or, where a
+// warp applies it with shuffles, as seven tables of 5-bit chunks (196).
+// 5. While the gather runs, the CTA copies in (cp.async) the operators it
+//    will need: M_4, the tree's levels, its unit's shift and the inverses
+//    below, up to 7.6 KiB.
+// 6. Once the tile is written out, each of the first 128 threads takes
+//    output bytes [128 t, 128 t + 128) of the unit into registers, through
+//    the swizzle (each lane's chunks in a rotated order, so that a quarter
+//    warp's 16-byte loads hit 8 bank groups), and folds them from a
+//    register of 0, four bytes a step (r = M_4(r ^ word)). Unit 0 XORs the
+//    initial 0xFFFFFFFF into the row's first four bytes. A warp holds an
+//    operator in seven registers, a 32-word table for each 5-bit chunk of
+//    a register (lane l: word l), so a lookup is a shuffle, with no bank
+//    conflicts; a shuffle takes two cycles of the SM's shared pipe, so the
+//    fold is that pipe's work, and 128 threads of 128 bytes need fewer of
+//    them than 256 of 64 (the tree below is shorter). The runs join in a
+//    tree: level k XORs M_{128 2^k} of the earlier group of 2^k runs with
+//    the later group (shuffles in a warp for k < 5, then warp 0 over the
+//    warps' sums), so each level's operator is one for all lanes. The
+//    zeros past declen are in the tile, so the unit's register is its
+//    bytes' followed by zeros up to 16 KiB.
+// 7. The unit's share of the row's register: a unit before the row's last
+//    live one advances its register by M_{16384 (last - u)}; then every
+//    live unit takes back the t = 16384 (last + 1) - declen < 2^14 zeros
+//    after declen with M_{t % 128}^-1 and M_{128 (t / 128)}^-1 (M_n is
+//    invertible: CRC32C's polynomial has a constant term; the tables hold
+//    all 254). The shares XOR to the row's register. A row of one live unit
+//    writes its CRC; otherwise each unit XORs its share and its bit 32 + u
+//    into the row's 64-bit word of state with one atomic, and the unit
+//    whose atomic completes the bits writes the CRC and zeroes the word for
+//    the next launch. Units past declen store zeros and add nothing; a row
+//    of declen 0 writes K1's value of an empty row.
+// Why not K1's way (PERF.md §6): its 24 KiB of lane tables a CTA, copied
+// from L2 by every CTA, cost more than the fold; table lookups in shared
+// memory ran slower than shuffles, even copied 32 times to avoid bank
+// conflicts. Why not a cluster a row, combined in unit 0's shared memory:
+// clusters of 4 left 8 of the 132 SMs idle, and the row waited 0.7-1.1 µs
+// on the cluster barrier or an mbarrier, against 0.3 µs for the atomic.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -51,15 +96,113 @@ constexpr int kTile = 1024;
 constexpr int kUnit = 16384;                         // output bytes per CTA
 constexpr int kChunksPerThread = kUnit / 8 / kThreads;
 
+// The checksum's tables (ops/decode_flat.py flat_crc_tables), in words.
+constexpr int kCrcThreads = 128;                     // the threads that fold the unit
+constexpr int kCrcWarps = kCrcThreads / 32;
+constexpr int kRun = kUnit / kCrcThreads;            // bytes a thread folds
+constexpr int kLevels = 7;                           // M_{128 2^k}: 128 runs join in 7 levels
+constexpr int kFive = 6 * 32 + 4;                    // an operator's 5-bit tables: bits 5c.., 30-31
+constexpr int kOp = 128;                             // an operator's nibble tables
+constexpr int kMaxUnits = 8;                         // units a row, one bit each in its state
+constexpr int kStaged = (1 + kLevels) * kFive;       // M_4 and the levels: every CTA's
+constexpr int kUnitAt = kStaged;                     // M_{16384 k}, k = 1..7
+constexpr int kInvAt = kUnitAt + (kMaxUnits - 1) * kOp;  // M_n^-1, n = lo, 128 hi; 0 < lo, hi < 128
+constexpr int kRadix = 128;                          // the zeros past declen: 128 hi + lo < 2^14
+constexpr uint32_t kEmptyCrc = 0xA282EAD8u;          // the masked CRC of no bytes
+static_assert(kRun == 128 && kCrcWarps == 1 << (kLevels - 5), "128-byte runs, 4 warps");
+static_assert(kFive % 4 == 0 && kOp % 4 == 0, "whole 16-byte copies");
+static_assert(kRadix * kRadix == kUnit, "two inverses take back any tail");
+
 // Physical 16-byte chunk of output chunk q of the unit (q >> 6 is its tile).
 __device__ __forceinline__ int swz(int q) { return q ^ ((q >> 6) & 7); }
 
-template <int kLayout>
+// The checksum's shared memory: M_4 and the levels (5-bit tables), then
+// this unit's shift to the live units' end and the two inverses of the
+// zeros past declen (nibble tables), copied in while the gather runs; then
+// the warps' sums. Only the kCrc
+// instance calls this, so only it holds the array.
+__device__ __forceinline__ uint32_t* crc_smem() {
+  __shared__ __align__(16) uint32_t s[kStaged + 3 * kOp + kCrcWarps];
+  return s;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Copies words [at, at + n) of the tables to dst.
+__device__ __forceinline__ void stage(uint32_t* dst, const uint32_t* tabs, int at, int n) {
+  for (int i = threadIdx.x; i < n / 4; i += kThreads) cp_async16(dst + 4 * i, tabs + at + 4 * i);
+}
+
+// The row's last live unit, and the zeros after declen in it as two
+// base-128 digits.
+struct RowEnd {
+  int last, lo, hi;
+};
+
+__device__ __forceinline__ RowEnd row_end(int declen, int d_pad) {
+  const int len = min(declen, d_pad);
+  const int last = (len + kUnit - 1) / kUnit - 1;
+  const int tail = kUnit * (last + 1) - len;
+  return {last, tail % kRadix, tail / kRadix};
+}
+
+// Eight nibble lookups: nibble q of v through the 16-entry table t + 16 q.
+__device__ __forceinline__ uint32_t lookup8(const uint32_t* t, uint32_t v) {
+  uint32_t r = 0;
+#pragma unroll
+  for (int q = 0; q < 8; q++) r ^= t[16 * q + ((v >> (4 * q)) & 15u)];
+  return r;
+}
+
+// The operator at tab (shared memory, 5-bit tables) as a warp holds it:
+// word 32 c + lane of chunk c's table in register c, and the last chunk's
+// four words in lanes 0-3 of register 6.
+__device__ __forceinline__ void load_op(uint32_t (&op)[7], const uint32_t* tab, int lane) {
+#pragma unroll
+  for (int c = 0; c < 6; c++) op[c] = tab[32 * c + lane];
+  op[6] = lane < 4 ? tab[192 + lane] : 0u;
+}
+
+// The held operator on v (every lane of the warp takes part): bits 5c to
+// 5c + 4 of v index chunk c's table, a shuffle from that lane.
+__device__ __forceinline__ uint32_t apply(const uint32_t (&op)[7], uint32_t v) {
+  uint32_t r = __shfl_sync(0xFFFFFFFFu, op[6], v >> 30);
+#pragma unroll
+  for (int c = 0; c < 6; c++) r ^= __shfl_sync(0xFFFFFFFFu, op[c], (v >> (5 * c)) & 31u);
+  return r;
+}
+
+// Level k of the tree over lanes (or warps): each pair of groups 2^k apart
+// joins, the earlier one advanced by the level's operator.
+__device__ __forceinline__ uint32_t join(const uint32_t* tab, int lane, int k, uint32_t r) {
+  uint32_t op[7];
+  load_op(op, tab, lane);
+  const uint32_t t = apply(op, r);
+  const uint32_t own = (lane >> k) & 1 ? r : t;
+  return own ^ __shfl_xor_sync(0xFFFFFFFFu, own, 1 << k);
+}
+
+// The XOR of the warp's 32 registers, in every lane.
+__device__ __forceinline__ uint32_t warp_xor(uint32_t r) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) r ^= __shfl_xor_sync(0xFFFFFFFFu, r, o);
+  return r;
+}
+
+template <int kLayout, bool kCrc>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 flat_kernel(const uint8_t* __restrict__ srcs, int s_width, const uint16_t* __restrict__ idx,
             const int32_t* __restrict__ tile_meta, const int32_t* __restrict__ gbuck,
             const int32_t* __restrict__ declens, int d_pad, int variant, int w0, int w1, int w2,
-            uint8_t* __restrict__ out) {
+            uint8_t* __restrict__ out, const uint32_t* __restrict__ crc_tabs,
+            int64_t* __restrict__ crc_out, unsigned long long* __restrict__ crc_state) {
   constexpr int kStep = kLayout ? 128 : 1;  // output bytes between a chunk's indices
   __shared__ uint4 tile4[kUnit / 16];
   const int tid = threadIdx.x;
@@ -75,11 +218,16 @@ flat_kernel(const uint8_t* __restrict__ srcs, int s_width, const uint16_t* __res
     wlim = (gb == 0 ? w0 : (gb == 1 ? w1 : w2)) * 128;
   }
   uint4* dst = reinterpret_cast<uint4*>(out + b * d_pad + g0);
+  if constexpr (kCrc) {
+    // A row with no live unit: K1's value of no bytes. Written here, not in
+    // the branch below: there it changed the live path's code and cost the
+    // gather ~0.5 µs a CTA.
+    if (blockIdx.x == 0 && tid == 0 && !live) crc_out[b] = kEmptyCrc;
+  }
   if (!live) {
     for (int q = tid; q < n_chunks / 2; q += kThreads) dst[q] = make_uint4(0, 0, 0, 0);
     return;
   }
-
   const uint8_t* src = srcs + b * s_width;
   const int32_t* meta = tile_meta + (b * (d_pad / kTile) + g0 / kTile) * 2;
   // Chunk j of this thread: c = tid + j * kThreads, the indices of output
@@ -94,6 +242,16 @@ flat_kernel(const uint8_t* __restrict__ srcs, int s_width, const uint16_t* __res
     // Clamped, a base leaves every position on the same side of 0 and s_width.
     const int m = c < n_chunks ? __ldg(meta + (kLayout ? c & 15 : c >> 7) * 2) : 0;
     base[j] = min(max(m, -513), s_width / 128 + 1) * 128;
+  }
+  if constexpr (kCrc) {
+    const RowEnd e = row_end(lim + g0, d_pad);
+    const int last = e.last, lo = e.lo, hi = e.hi;
+    uint32_t* t = crc_smem();
+    stage(t, crc_tabs, 0, kStaged);
+    if (static_cast<int>(blockIdx.x) < last)
+      stage(t + kStaged, crc_tabs, kUnitAt + kOp * (last - blockIdx.x - 1), kOp);
+    if (lo) stage(t + kStaged + kOp, crc_tabs, kInvAt + kOp * (lo - 1), kOp);
+    if (hi) stage(t + kStaged + 2 * kOp, crc_tabs, kInvAt + kOp * (kRadix - 2 + hi), kOp);
   }
   uint8_t* tile = reinterpret_cast<uint8_t*>(tile4);
 #pragma unroll
@@ -117,19 +275,85 @@ flat_kernel(const uint8_t* __restrict__ srcs, int s_width, const uint16_t* __res
       }
     }
   }
+  if constexpr (kCrc) cp_async_wait_all();
   __syncthreads();
   for (int q = tid; q < n_chunks / 2; q += kThreads) dst[q] = tile4[swz(q)];
+  if constexpr (kCrc) {
+    const RowEnd e = row_end(lim + g0, d_pad);  // again: no register holds it over the gather
+    const int last = e.last, lo = e.lo, hi = e.hi;
+    const uint32_t* tabs = crc_smem();
+    uint32_t* wsum = crc_smem() + kStaged + 3 * kOp;
+    const int lane = tid & 31, warp = tid >> 5;
+    if (tid < kCrcThreads) {
+      // Chunk (i + rot) & 7 of the run first, so that the 8 lanes of each
+      // quarter warp read 8 different bank groups; then back in order.
+      const int rot = tid & 7;
+      uint4 run[kRun / 16];
+#pragma unroll
+      for (int i = 0; i < kRun / 16; i++) {
+        const int q = tid * (kRun / 16) + ((i + rot) & 7);  // none past the unit's n_chunks
+        run[i] = q < n_chunks / 2 ? tile4[swz(q)] : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int s = 1; s < 8; s <<= 1) {
+        if (rot & s) {
+          uint4 rolled[kRun / 16];
+#pragma unroll
+          for (int i = 0; i < kRun / 16; i++) rolled[i] = run[(i - s) & 7];
+#pragma unroll
+          for (int i = 0; i < kRun / 16; i++) run[i] = rolled[i];
+        }
+      }
+      if (tid == 0 && blockIdx.x == 0) run[0].x ^= 0xFFFFFFFFu;
+      uint32_t op[7];
+      load_op(op, tabs, lane);  // M_4
+      uint32_t r = 0;
+#pragma unroll
+      for (int i = 0; i < kRun / 16; i++) {
+        r = apply(op, r ^ run[i].x);
+        r = apply(op, r ^ run[i].y);
+        r = apply(op, r ^ run[i].z);
+        r = apply(op, r ^ run[i].w);
+      }
+#pragma unroll
+      for (int k = 0; k < 5; k++) r = join(tabs + kFive * (1 + k), lane, k, r);
+      if (lane == 0) wsum[warp] = r;
+    }
+    __syncthreads();
+    if (warp != 0) return;
+    uint32_t u = lane < kCrcWarps ? wsum[lane] : 0u;
+#pragma unroll
+    for (int k = 5; k < kLevels; k++) u = join(tabs + kFive * (1 + k), lane, k - 5, u);
+    if (lane != 0) return;
+    // The unit's share of the row's register: to the live units' end, then
+    // back past the zeros after declen.
+    if (static_cast<int>(blockIdx.x) < last) u = lookup8(tabs + kStaged, u);
+    if (lo) u = lookup8(tabs + kStaged + kOp, u);
+    if (hi) u = lookup8(tabs + kStaged + 2 * kOp, u);
+    if (last > 0) {
+      // The row's state: the XOR of its units' shares, and bit 32 + u for
+      // each unit in. The unit that completes the bits has the register.
+      const unsigned long long mine = (1ull << (32 + blockIdx.x)) | u;
+      const unsigned long long full = ((1ull << (last + 1)) - 1) << 32;
+      const unsigned long long now = atomicXor(crc_state + b, mine) ^ mine;
+      if ((now & ~0xFFFFFFFFull) != full) return;
+      crc_state[b] = 0;  // for the next launch on this stream
+      u = static_cast<uint32_t>(now);
+    }
+    const uint32_t crc = u ^ 0xFFFFFFFFu;
+    crc_out[b] = static_cast<int64_t>(((crc >> 15) | (crc << 17)) + kEmptyCrc);
+  }
 }
 
 int launch(const uint8_t* srcs, long long n_rows, long long s_width, const uint16_t* idx,
            const int32_t* tile_meta, const int32_t* gbuck, const int32_t* declens,
            long long d_pad, int layout, int variant, int w0, int w1, int w2, uint8_t* out,
            void* stream) {
-  const auto kernel = layout ? flat_kernel<1> : flat_kernel<0>;
+  const auto kernel = layout ? flat_kernel<1, false> : flat_kernel<0, false>;
   const dim3 grid(static_cast<unsigned>((d_pad + kUnit - 1) / kUnit), static_cast<unsigned>(n_rows));
   kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       srcs, static_cast<int>(s_width), idx, tile_meta, gbuck, declens, static_cast<int>(d_pad),
-      variant, w0, w1, w2, out);
+      variant, w0, w1, w2, out, nullptr, nullptr, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -150,4 +374,22 @@ extern "C" int stpu_cuda_flat_grouped(const uint8_t* srcs, int64_t n_rows, int64
                                       uint8_t* out, void* stream) {
   return launch(srcs, n_rows, s_width, idx, tile_meta, gbuck, declens, d_pad, 1, variant, w0, w1,
                 w2, out, stream);
+}
+
+// K2 with the frame checksum: crc[b] is the masked CRC32C of out[b, :declen]
+// (declen clamped to [0, d_pad]). d_pad is at most 8 units; state holds
+// n_rows zeroed words, and is left zeroed: the rows' units meet there.
+extern "C" int stpu_cuda_flat_gather_crc(const uint8_t* srcs, int64_t n_rows, int64_t s_width,
+                                         const uint16_t* idx, const int32_t* tile_meta,
+                                         const int32_t* declens, int64_t d_pad, int layout,
+                                         const uint32_t* crc_tabs, uint8_t* out, int64_t* crc,
+                                         unsigned long long* state, void* stream) {
+  const auto kernel = layout ? flat_kernel<1, true> : flat_kernel<0, true>;
+  const unsigned units = static_cast<unsigned>((d_pad + kUnit - 1) / kUnit);
+  if (units < 1 || units > kMaxUnits) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(units, static_cast<unsigned>(n_rows));
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      srcs, static_cast<int>(s_width), idx, tile_meta, nullptr, declens, static_cast<int>(d_pad),
+      0, 0, 0, 0, out, crc_tabs, crc, state);
+  return static_cast<int>(cudaGetLastError());
 }

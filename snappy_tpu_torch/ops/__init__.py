@@ -29,12 +29,15 @@ from .frame import encode_frame_chunks  # noqa: F401
 
 def launch_counts() -> dict[str, int]:
     """Every kernel wrapper's launch count, by kernel (a wrapper counts where
-    it launches its kernel, never where it runs its plain version)."""
+    it launches its kernel, never where it runs its plain version). K2's
+    launches with the frame checksum count under their layout and again
+    under ``flat_gather_crc``."""
     from . import crc32c, decode_flat, emit, encode, parse, records, replay, resolve
 
     return {"crc32c": crc32c.launches, "replay": replay.launches,
             "flat_gather[layout=0]": decode_flat.layout_launches[0],
             "flat_gather[layout=1]": decode_flat.layout_launches[1],
+            "flat_gather_crc": decode_flat.crc_launches,
             "flat_grouped[v3]": decode_flat.grouped_launches[3],
             "flat_grouped[v4]": decode_flat.grouped_launches[4],
             "parse": parse.launches, "encode": encode.launches, **emit.entry_launches,
@@ -47,6 +50,7 @@ def reset_launch_counts() -> None:
 
     for m in (crc32c, decode_flat, replay, parse, encode, records):
         m.launches = 0
+    decode_flat.crc_launches = 0
     decode_flat.layout_launches[:] = [0, 0]
     for d in (emit.entry_launches, resolve.launches, decode_flat.grouped_launches):
         for k in d:

@@ -135,6 +135,35 @@ def check(status: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {status}")
 
 
+_states: dict = {}
+_state_lock = threading.Lock()
+
+
+def not_capturing(device, name: str) -> None:
+    """Raise if card ``device``'s current stream is capturing a CUDA graph:
+    ``name``'s scratch cannot be made there, since the capture records its
+    allocation and filling instead of running them."""
+    with torch.cuda.device(device):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"{name}: the first launch on a card and stream is inside a CUDA graph "
+                "capture; launch once on that stream before capturing")
+
+
+def stream_state(device, name: str, make):
+    """``make()``, made once for launches of ``name`` on card ``device``'s
+    current stream (the stream :func:`launch` passes): scratch that a kernel
+    leaves as it found it, one a stream, so that launches on two streams of
+    a card never share it. Not made inside a CUDA graph capture
+    (:func:`not_capturing`)."""
+    key = (name, device.index, torch.cuda.current_stream(device).cuda_stream)
+    with _state_lock:
+        if key not in _states:
+            not_capturing(device, name)
+            _states[key] = make()
+        return _states[key]
+
+
 def launch(device, what: str, entry, *args) -> None:
     """Call the C entry ``entry(*args, stream)`` on card ``device``, with that
     card's current stream last, and raise on a non-zero status.

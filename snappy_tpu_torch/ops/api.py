@@ -9,9 +9,11 @@ groups rows by width, flattens copy chains with the native runtime, and
 moves fixed-shape batches to and from the device, where three kernels do
 the byte work:
 
-- K2 ``decode_flat`` emits every byte from its flattened source index;
+- K2 ``decode_flat`` emits every byte from its flattened source index,
+  and with the frame checksum (``decode_flat_crc``) also each row's CRC;
 - K3 ``decode_replay`` decodes the groups the flatten cannot window;
-- K1 ``crc32c_masked_blocks`` checks every decoded frame chunk.
+- K1 ``crc32c_masked_blocks`` checks every frame chunk that another route
+  decoded.
 
 Two opt-in routes start from the host's op-record scan
 (``native.scan_records_batch``) instead of the flatten, with the JAX
@@ -75,7 +77,7 @@ from ..format.varint import read_varu64, write_varu64
 from . import _build, packing
 from .crc32c import crc32c_masked_blocks
 from .decode import decode_batch, decode_batch_hosted, decode_crc_batch, decode_crc_batch_hosted
-from .decode_flat import decode_flat
+from .decode_flat import decode_flat, decode_flat_crc
 from .encode import compress_blocks_host
 from .encode_fast import compress_blocks_fast_host
 from .encode_flat import compress_blocks_flat_host
@@ -521,13 +523,15 @@ def decode_group(srcs: np.ndarray, lens: np.ndarray, declens: list[int], d_pad: 
     scans and the card resolves (``ops/resolve.py``); else, under
     ``Config.decode_flat`` (the default), the host flatten resolves every
     copy chain and K2 gathers the bytes (``layout=1`` when ``d_pad`` is
-    whole 16 KiB groups, else 0). A group these leave (a record-cap
+    whole 16 KiB groups, else 0), with the CRCs in the same launch when
+    ``with_crc``. A group these leave (a record-cap
     overflow, a flagged resolve, a tile the flatten cannot window) takes
     K3 if its rows are at most ``Config.replay_max_body`` wide. Every other
     group decodes in tensor ops: from the host's op-start bitmap, or all
     on the device under ``Config.pure_device``. Returns ``(dst (B, d_pad)
     uint8 on dev, errs (B,) int32 numpy, crcs (B,) int64 on dev or
-    None)``; the CRCs (K1) when ``with_crc``.
+    None)``; the CRCs when ``with_crc`` (K2's on the flat route, K1's on
+    the others but the tensor routes, which take their own).
     """
     with _span("pack"):
         cfg = get_config()
@@ -558,7 +562,11 @@ def decode_group(srcs: np.ndarray, lens: np.ndarray, declens: list[int], d_pad: 
                 tmeta_t = torch.from_numpy(tmeta).to(dev)
                 del idx, tmeta  # the copies' sources go here, not as the group returns
             with _span("kernels", dev):
-                got = decode_flat(srcs_t, idx_t, tmeta_t, declens_t, d_pad, layout), herrs
+                if with_crc:
+                    dst, crc = decode_flat_crc(srcs_t, idx_t, tmeta_t, declens_t, d_pad, layout)
+                else:
+                    dst = decode_flat(srcs_t, idx_t, tmeta_t, declens_t, d_pad, layout)
+                got = dst, herrs
             route = "flat"
     if got is None and kernels and srcs.shape[1] <= cfg.replay_max_body:
         with _span("h2d", nbytes=4 * len(lens)):
@@ -573,7 +581,7 @@ def decode_group(srcs: np.ndarray, lens: np.ndarray, declens: list[int], d_pad: 
         with _span("d2h", nbytes=gerrs.nbytes):
             got = dst, gerrs.cpu().numpy()
         route = "parallel_hosted" if scan else "parallel"
-    elif with_crc:
+    elif with_crc and crc is None:
         with _span("kernels", dev):
             crc = crc32c_masked_blocks(got[0], declens_t)
     if routes is not None:

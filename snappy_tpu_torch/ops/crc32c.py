@@ -67,14 +67,19 @@ def _compose(a, b):
     return [_apply_int(a, bj) for bj in b]
 
 
+def _squares(first) -> np.ndarray:
+    """``first`` and its 31 repeated squares, ``(32, 32)`` uint32 columns."""
+    ops = [first]
+    for _ in range(31):
+        ops.append(_compose(ops[-1], ops[-1]))
+    return np.asarray(ops, dtype=np.uint32)
+
+
 @functools.cache
 def shift_operators() -> np.ndarray:
     """``ops[k]`` = columns of M_{2^k}: advance a CRC past 2^k zero
     bytes. ``(32, 32)`` uint32."""
-    ops = [_byte_step_cols()]
-    for _ in range(31):
-        ops.append(_compose(ops[-1], ops[-1]))
-    return np.asarray(ops, dtype=np.uint32)
+    return _squares(_byte_step_cols())
 
 
 def _apply_np(cols, v: np.ndarray) -> np.ndarray:
@@ -83,23 +88,80 @@ def _apply_np(cols, v: np.ndarray) -> np.ndarray:
     return np.bitwise_xor.reduce(np.where(bits == 1, np.asarray(cols, np.uint64), 0), axis=-1)
 
 
-@functools.cache
-def shift_columns(n: int) -> np.ndarray:
-    """Columns of M_n, the advance past ``n`` zero bytes: the product of
-    the ``shift_operators`` of ``n``'s set bits (they commute)."""
+def _power(ops: np.ndarray, n: int) -> np.ndarray:
+    """Columns of the product of ``ops[k]`` over ``n``'s set bits (powers
+    of one operator: they commute)."""
     cols = np.uint64(1) << np.arange(32, dtype=np.uint64)  # the identity
     for k in range(n.bit_length()):
         if n >> k & 1:
-            cols = _apply_np(shift_operators()[k], cols)
+            cols = _apply_np(ops[k], cols)
     return cols.astype(np.uint32)
+
+
+@functools.cache
+def shift_columns(n: int) -> np.ndarray:
+    """Columns of M_n, the advance past ``n`` zero bytes: the product of
+    the ``shift_operators`` of ``n``'s set bits."""
+    return _power(shift_operators(), n)
+
+
+def _nibbles(cols) -> np.ndarray:
+    """The operator with columns ``cols`` as eight nibble tables."""
+    v = np.arange(16, dtype=np.uint64)[None, :] << (4 * np.arange(8, dtype=np.uint64))[:, None]
+    return _apply_np(cols, v).astype(np.uint32)
 
 
 def nibble_tables(n: int) -> np.ndarray:
     """M_n as eight nibble tables, ``(8, 16)`` uint32: ``tab[q, v] =
     M_n(v << 4q)``, so that ``M_n(x)`` is the XOR of ``tab[q, (x >> 4q) &
     15]`` over ``q``."""
-    v = np.arange(16, dtype=np.uint64)[None, :] << (4 * np.arange(8, dtype=np.uint64))[:, None]
+    return _nibbles(shift_columns(n))
+
+
+def five_bit_tables(n: int) -> np.ndarray:
+    """M_n as seven tables of 5-bit chunks, 196 uint32 words: word ``32 c +
+    j`` is ``M_n(j << 5c)`` for ``c < 6``, word ``192 + j`` is ``M_n(j <<
+    30)`` for ``j < 4``; ``M_n(x)`` is the XOR over ``c`` of chunk ``c``'s
+    entry for the bits of ``x`` from ``5c`` up (K2's checksum, whose warps
+    hold them in seven registers)."""
+    j = np.arange(32, dtype=np.uint64)
+    v = np.concatenate([j << np.uint64(5 * c) for c in range(6)] + [j[:4] << np.uint64(30)])
     return _apply_np(shift_columns(n), v).astype(np.uint32)
+
+
+def _invert(cols) -> np.ndarray:
+    """Columns of the inverse of the invertible GF(2) operator with columns
+    ``cols``: Gauss-Jordan, each row beside the identity's."""
+    cols = [int(c) for c in cols]
+    rows = [sum(((cols[j] >> i) & 1) << j for j in range(32)) | 1 << (32 + i) for i in range(32)]
+    for j in range(32):
+        p = next(i for i in range(j, 32) if rows[i] >> j & 1)
+        rows[j], rows[p] = rows[p], rows[j]
+        for i in range(32):
+            if i != j and rows[i] >> j & 1:
+                rows[i] ^= rows[j]
+    return np.asarray([sum(((rows[i] >> (32 + k)) & 1) << i for i in range(32))
+                       for k in range(32)], dtype=np.uint32)
+
+
+@functools.cache
+def inverse_operators() -> np.ndarray:
+    """``inv[k]`` = columns of M_{2^k}'s inverse, which takes back 2^k zero
+    bytes: M_n is invertible because CRC32C's polynomial has a constant
+    term. ``(32, 32)`` uint32."""
+    return _squares(_invert(shift_operators()[0]))
+
+
+@functools.cache
+def inverse_columns(n: int) -> np.ndarray:
+    """Columns of M_n's inverse: the product of the
+    :func:`inverse_operators` of ``n``'s set bits."""
+    return _power(inverse_operators(), n)
+
+
+def inverse_nibble_tables(n: int) -> np.ndarray:
+    """M_n's inverse as eight nibble tables, as :func:`nibble_tables`."""
+    return _nibbles(inverse_columns(n))
 
 
 @functools.cache

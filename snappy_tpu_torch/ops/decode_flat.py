@@ -23,25 +23,44 @@ row, is 0.
 
 ``idx`` travels as ``int16`` (torch's ``uint16`` support is thin); the
 kernel reads it as ``uint16`` and the plain version masks with 0xFFFF.
+
+:func:`decode_flat_crc` is K2 with the frame checksum: the same kernel,
+built with its checksum on, also writes each row's masked CRC32C, which
+the frame read would otherwise take from K1 after K2. A row's CTAs combine
+their 16 KiB units' shares of its register in a 64-bit word of state a row
+(one atomic a unit), so rows of up to :data:`MAX_CRC_UNITS` units; wider
+rows take K2 and then K1.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
+import numpy as np
 import torch
 
 from . import _build
+from .crc32c import (
+    crc32c_masked_blocks, crc32c_plain, five_bit_tables, inverse_nibble_tables, nibble_tables,
+)
 
 #: Kernel launches since the count was last reset: K2 in all and per
-#: layout, K11 per variant.
+#: layout (its checksum instance included), K2 with the checksum
+#: (``crc_launches``), K11 per variant.
 launches = 0
 layout_launches = [0, 0]
+crc_launches = 0
 grouped_launches = {3: 0, 4: 0}
 
 GROUP = 16384  # output bytes per bucket group (16 tiles of 1024)
 NOMINAL_WINDOWS = (128, 256, 512)  # window rows of buckets 0, 1, 2
+RUN = 128  # bytes of a unit each of the checksum's 128 threads folds
+LEVELS = 7  # the tree that joins a unit's 128 runs
+FIVE = 196  # words of an operator's 5-bit tables
+MAX_CRC_UNITS = 8  # a row's units, a bit each in its state (csrc/flat_gather.cu kMaxUnits)
+TAIL_RADIX = 128  # the zeros past declen in the last live unit, below 2**14, in base 128
 
 
 def phys_index(d, layout: int):
@@ -96,14 +115,9 @@ def _kernel():
     return fn
 
 
-def decode_flat(srcs, idx, tile_meta, declens, d_pad: int, layout: int):
-    """Decode ``(B, S)`` uint8 bodies to ``(B, d_pad)`` uint8 bytes.
-
-    ``idx``: ``(B, d_pad)`` int16; ``tile_meta``: ``(B, d_pad // 1024, 2)``
-    int32; ``declens``: ``(B,)`` int32. A CUDA input launches the kernel
-    (or raises); a CPU input runs :func:`decode_flat_plain`.
-    """
-    b, s = srcs.shape
+def _flat_checks(srcs, idx, tile_meta, declens, d_pad: int, layout: int) -> None:
+    """K2's argument checks, with or without the checksum."""
+    b = srcs.shape[0]
     if srcs.dtype != torch.uint8 or idx.dtype != torch.int16:
         raise TypeError(f"srcs must be uint8 and idx int16, got {srcs.dtype}, {idx.dtype}")
     if tile_meta.dtype != torch.int32 or declens.dtype != torch.int32:
@@ -116,9 +130,20 @@ def decode_flat(srcs, idx, tile_meta, declens, d_pad: int, layout: int):
         or declens.shape != (b,)
     ):
         raise ValueError("idx, tile_meta and declens do not match srcs and d_pad")
-    tensors = (srcs, idx, tile_meta, declens)
-    if any(t.device != srcs.device for t in tensors):
+    if any(t.device != srcs.device for t in (idx, tile_meta, declens)):
         raise ValueError("all inputs must be on one device")
+
+
+def decode_flat(srcs, idx, tile_meta, declens, d_pad: int, layout: int):
+    """Decode ``(B, S)`` uint8 bodies to ``(B, d_pad)`` uint8 bytes.
+
+    ``idx``: ``(B, d_pad)`` int16; ``tile_meta``: ``(B, d_pad // 1024, 2)``
+    int32; ``declens``: ``(B,)`` int32. A CUDA input launches the kernel
+    (or raises); a CPU input runs :func:`decode_flat_plain`.
+    """
+    b, s = srcs.shape
+    _flat_checks(srcs, idx, tile_meta, declens, d_pad, layout)
+    tensors = (srcs, idx, tile_meta, declens)
     if srcs.device.type == "cpu":
         return decode_flat_plain(srcs, idx, tile_meta, declens, d_pad, layout)
     _cuda_checks(tensors, b, s)
@@ -133,6 +158,98 @@ def decode_flat(srcs, idx, tile_meta, declens, d_pad: int, layout: int):
         declens.data_ptr(), d_pad, layout, out.data_ptr(),
     )
     return out
+
+
+def tail_counts() -> list[int]:
+    """The zero counts whose inverses the tables hold: ``lo`` and ``128 hi``
+    for ``lo, hi`` in ``1..127``, so that the zeros past ``declen`` in the
+    last live unit, ``128 hi + lo < 2**14``, go back in two steps."""
+    return [lo for lo in range(1, TAIL_RADIX)] + [TAIL_RADIX * hi for hi in range(1, TAIL_RADIX)]
+
+
+@functools.cache
+def flat_crc_tables() -> np.ndarray:
+    """The checksum instance's tables, one uint32 array in the kernel's
+    order (``csrc/flat_gather.cu``): M_4 (four bytes a step) and the tree's
+    levels M_{128 2^k}, ``k < 7``, as :func:`five_bit_tables`; then as
+    eight nibble tables (:func:`nibble_tables`, 128 words) the units'
+    M_{16384 k}, ``k = 1..7``, and the inverses of M_n for every ``n`` of
+    :func:`tail_counts`. M_n advances a register past ``n`` zero bytes
+    (``ops/crc32c.py``)."""
+    ops = ([five_bit_tables(4)] + [five_bit_tables(RUN << k) for k in range(LEVELS)]
+           + [nibble_tables(GROUP * k) for k in range(1, MAX_CRC_UNITS)]
+           + [inverse_nibble_tables(n) for n in tail_counts()])
+    return np.concatenate([op.reshape(-1) for op in ops]).astype(np.uint32)
+
+
+_tables_lock = threading.Lock()
+_crc_tables: dict[int, torch.Tensor] = {}
+
+
+def _crc_scratch(device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The checksum's tables on card ``device`` and the rows' words of state
+    of its current stream, made by the first launch on each: the state
+    zeroed once, and left zeroed by every launch.
+
+    A CUDA graph capture would record the copy and the zeroing instead of
+    running them, so a launch inside a capture needs both made before: it
+    raises otherwise. A captured launch keeps the words of the stream it was
+    captured on; replay it while no launch of that stream runs."""
+    with _tables_lock:
+        tabs = _crc_tables.get(device.index)
+        if tabs is None:
+            _build.not_capturing(device, "flat_gather_crc")
+            tabs = torch.from_numpy(flat_crc_tables().view(np.int32)).to(device)
+            torch.cuda.synchronize(device)  # copied in before any stream of any thread reads them
+            _crc_tables[device.index] = tabs
+    state = _build.stream_state(device, "flat_gather_crc",
+                                lambda: torch.zeros(65535, dtype=torch.int64, device=device))
+    return tabs, state
+
+
+@functools.cache
+def _crc_kernel():
+    fn = _build.kernel_lib("flat_gather").stpu_cuda_flat_gather_crc
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    fn.argtypes = [p, i64, i64, p, p, p, i64, ctypes.c_int, p, p, p, p, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def decode_flat_crc(srcs, idx, tile_meta, declens, d_pad: int, layout: int):
+    """:func:`decode_flat` and the masked CRC32C of each row's first
+    ``declen`` bytes (clamped to ``[0, d_pad]``), as ``(out, crc)``: ``crc``
+    ``(B,)`` int64, as ``crc32c_masked_blocks(out, declens)`` gives it.
+
+    On the card one launch does both (counted in :data:`launches` and
+    :data:`crc_launches`); rows wider than :data:`MAX_CRC_UNITS` units take
+    K2 and then K1. A CPU input runs :func:`decode_flat_plain` and
+    ``crc32c_plain``. A card's and a stream's first launch must come
+    before any CUDA graph capture on them (:func:`_crc_scratch`)."""
+    b, s = srcs.shape
+    _flat_checks(srcs, idx, tile_meta, declens, d_pad, layout)
+    if srcs.device.type == "cpu":
+        out = decode_flat_plain(srcs, idx, tile_meta, declens, d_pad, layout)
+        return out, crc32c_plain(out, declens, masked=True)
+    if -(-d_pad // GROUP) > MAX_CRC_UNITS or d_pad == 0:
+        out = decode_flat(srcs, idx, tile_meta, declens, d_pad, layout)
+        return out, crc32c_masked_blocks(out, declens)
+    tensors = (srcs, idx, tile_meta, declens)
+    _cuda_checks(tensors, b, s)
+    out = torch.empty((b, d_pad), dtype=torch.uint8, device=srcs.device)
+    crc = torch.empty(b, dtype=torch.int64, device=srcs.device)
+    if b == 0:
+        return out, crc
+    tabs, state = _crc_scratch(srcs.device)
+    _build.count(globals(), "launches")
+    _build.count(layout_launches, layout)
+    _build.count(globals(), "crc_launches")
+    _build.launch(
+        srcs.device, "flat_gather_crc", _crc_kernel(),
+        srcs.data_ptr(), b, s, idx.data_ptr(), tile_meta.data_ptr(), declens.data_ptr(), d_pad,
+        layout, tabs.data_ptr(), out.data_ptr(), crc.data_ptr(), state.data_ptr(),
+    )
+    return out, crc
 
 
 def group_buckets(tile_meta, declens, d_pad: int):

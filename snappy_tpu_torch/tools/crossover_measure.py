@@ -18,8 +18,8 @@ input size (64 KiB to 64 MiB of the corpus's ``html``, ``alice29.txt``,
   timed with CUDA events around whole passes, the host's dispatch of the
   plan's small tensor ops included (``utils.profiling.event_ms``);
 - the calls a user makes, host bytes to host bytes: ``dec_call_GBps``
-  (``ops.api.decompress_frame`` on the host codec's frame stream: K2 and
-  K1, as the ``device`` engine decodes) against ``dec_frame_host_GBps``
+  (``ops.api.decompress_frame`` on the host codec's frame stream: K2 with
+  its checksum, as the ``device`` engine decodes) against ``dec_frame_host_GBps``
   (``native.frame_decompress``, every thread, as the ``native`` engine
   does), and ``enc_call_GBps`` (``ops.api.compress(data,
   profile="fast")``, the ``device-fast`` engine's raw compress) against
@@ -235,7 +235,7 @@ def _measure_size(size: int, dev, iters: int) -> dict:
 
     _peak_reset(dev)
     timed("dec_call", lambda: api.decompress_frame(frame, device=dev),
-          same("decompress_frame (K2, K1)"))
+          same("decompress_frame (K2 with its checksum)"))
     row["dec_call_peak_bytes"] = _peak(dev)
     timed("dec_frame_host", lambda: native.frame_decompress(frame), same("host frame decompress"))
     _peak_reset(dev)

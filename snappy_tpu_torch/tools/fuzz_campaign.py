@@ -15,8 +15,9 @@ leg what it holds                                               kernels on the c
 3   batched decode, one mutation in three (the hosted tensor    none (tensor ops)
     route, the JAX leg's hybrid path)
 4   the fast profile's validity (``compress_blocks_fast``)      none (tensor ops)
-5   mutated frame streams: the reference and native readers     K1, K2; K3 for a group
-    and ``decompress_frame`` agree on bytes and errors          the flatten rejects
+5   mutated frame streams: the reference and native readers     K2 with its checksum; K3
+    and ``decompress_frame`` agree on bytes and errors          and K1 for a group the
+                                                                flatten rejects
 6   the segmented reader                                        (host)
 7   the host batch codec                                        (host)
 8   ``SNAPPY_TPU_PALLAS_DECODE=1``: the flat route              K2; K3 for a group the

@@ -66,9 +66,10 @@ def event_ms(fn, reps: int, warm: int = 2, turns: int = 1, check=None) -> list[f
 
 def graph_ms(fn, reps: int, turns: int = 1, check=None) -> list[float]:
     """Milliseconds per call of ``fn`` with the host out of the window, one
-    reading per turn: ``reps`` calls captured once in a CUDA graph (the
-    wrappers launch on the current stream, the capture's), each turn one
-    replay between two CUDA events. ``fn`` must read nothing back.
+    reading per turn: ``reps`` calls captured once in a CUDA graph on the
+    side stream that ran the warm-up (the wrappers launch on the current
+    stream, the capture's, and make their scratch there first), each turn
+    one replay between two CUDA events. ``fn`` must read nothing back.
     ``check(out)`` then sees the last captured call's output as the last
     replay left it, so the timed work is the checked work."""
     side = torch.cuda.Stream()
@@ -79,7 +80,7 @@ def graph_ms(fn, reps: int, turns: int = 1, check=None) -> list[float]:
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(reps):
             last = fn()
     graph.replay()

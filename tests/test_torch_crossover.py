@@ -96,7 +96,7 @@ def test_runs_on_the_plain_versions_with_every_field_and_check(tool, tmp_path, c
 @pytest.mark.parametrize("fault,message", [
     ("k2", "flat gather (K2): 1 rows differ"),
     ("encoder", "flat encoder (K4, K5): row 0 does not decode to its block"),
-    ("decompress_frame", "decompress_frame (K2, K1): the output differs from the input"),
+    ("decompress_frame", "decompress_frame (K2 with its checksum): the output differs from the input"),
     ("compress", "compress(profile='fast') (K4, K5): the output differs from the input"),
 ])
 def test_a_wrong_row_fails_the_run(tool, monkeypatch, capsys, fault, message):

@@ -22,7 +22,7 @@ from snappy_tpu_torch.ops import (
     replay, resolve,
 )
 from torch_vectors import (
-    CORRUPT, collision_rows, copy2, edge_rows, fallback_row,
+    CORRUPT, FLAT_CRC_SHAPES, collision_rows, copy2, edge_rows, fallback_row, flat_crc_rows,
     k9_planes, literal, overlap_rows, random_ops, raw_body, resolve_cases, scan_batch, wide_stream,
 )
 
@@ -176,6 +176,99 @@ def test_flat_gather_kernel_matches_plain(dev, layout):
         for i, (body, declen) in enumerate(rows):
             want = native.decompress(write_varu64(declen) + body)
             assert host[i, :declen].tobytes() == want and not host[i, declen:].any(), name
+
+
+def _flat_crc_check(dev, rows, d_pad, layout, width=None):
+    """K2 with the frame checksum against K2 and K1 on the same inputs: the
+    bytes, the CRCs (also the host codec's), one launch of it (K2 and K1
+    past eight units), and no fault."""
+    srcs, idx, tmeta, declens = _flatten(rows, d_pad, layout, width)
+    a = [torch.from_numpy(x).to(dev) for x in (srcs, idx.view(np.int16), tmeta, declens)]
+    fused = -(-d_pad // decode_flat.GROUP) <= decode_flat.MAX_CRC_UNITS
+    before = (decode_flat.crc_launches, decode_flat.layout_launches[layout], crc32c.launches)
+    out, crc = decode_flat.decode_flat_crc(*a, d_pad, layout)
+    torch.cuda.synchronize()
+    assert (decode_flat.crc_launches, decode_flat.layout_launches[layout], crc32c.launches) == (
+        before[0] + fused, before[1] + 1, before[2] + (not fused))
+    want = decode_flat.decode_flat(*a, d_pad, layout)
+    assert torch.equal(out, want)
+    assert torch.equal(crc, crc32c.crc32c_masked_blocks(want, a[3]))
+    torch.cuda.synchronize()
+    host, got = out.cpu().numpy(), crc.cpu().tolist()
+    for i, (body, declen) in enumerate(rows):
+        assert host[i, :declen].tobytes() == native.decompress(write_varu64(declen) + body)
+        assert got[i] == native.crc32c_masked(host[i, :declen].tobytes())
+
+
+@pytest.mark.parametrize("layout,d_pad", [*FLAT_CRC_SHAPES, (1, 147456)])
+def test_flat_gather_crc_kernel_matches_the_pair(dev, layout, d_pad):
+    """Declens 0, 1, 15, 16, 16,383, 16,384, 16,385 and d_pad, text and
+    literals, in one unit under 16 KiB up to eight units; 147,456
+    bytes (nine units) takes K2 and K1."""
+    _flat_crc_check(dev, flat_crc_rows(d_pad), d_pad, layout)
+
+
+@pytest.mark.parametrize("layout", [0, 1])
+def test_flat_gather_crc_kernel_on_k2_cases(dev, layout):
+    """K2's own cases: corpus chunks, the wide stream (1 MiB: K2 and K1),
+    rows of the 81,920-byte width beside a row of declen 0."""
+    for _, rows, d_pad, width in _flat_cases(layout):
+        _flat_crc_check(dev, rows, d_pad, layout, width)
+
+
+def test_flat_gather_crc_kernel_in_a_cuda_graph(dev):
+    """The wrapper reads nothing back, so its launches can be captured in a
+    CUDA graph and replayed (as chip_smoke.py times it) on a stream that
+    launched it once before; each launch leaves the rows' state zeroed, so
+    every replay gives the CRCs again. A first launch on a stream inside a
+    capture raises (its state would be made by the replay, not before)."""
+    rows = flat_crc_rows(65536)
+    srcs, idx, tmeta, declens = _flatten(rows, 65536, 1, None)
+    a = [torch.from_numpy(x).to(dev) for x in (srcs, idx.view(np.int16), tmeta, declens)]
+    _, want = decode_flat.decode_flat_crc(*a, 65536, 1)
+    assert torch.equal(want, crc32c.crc32c_masked_blocks(decode_flat.decode_flat(*a, 65536, 1), a[3]))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_flat.decode_flat_crc(*a, 65536, 1)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = decode_flat.crc_launches
+    with torch.cuda.graph(graph, stream=side):
+        outs = [decode_flat.decode_flat_crc(*a, 65536, 1)[1] for _ in range(3)]
+    assert decode_flat.crc_launches == before + 3
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(c, want) for c in outs)
+    fresh = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="capture"):
+        with torch.cuda.graph(fresh, stream=torch.cuda.Stream()):
+            decode_flat.decode_flat_crc(*a, 65536, 1)
+    assert decode_flat.crc_launches == before + 3
+    assert torch.equal(decode_flat.decode_flat_crc(*a, 65536, 1)[1], want)
+
+
+def test_frame_read_of_the_corpus_runs_no_k1(dev):
+    """decompress_frame and the device reader of the corpus: K2 with the
+    checksum on every launch group (``crc_launches == launches``), no K1,
+    and the stream back."""
+    import io
+
+    from snappy_tpu_torch import read
+
+    names = ("alice29.txt", "asyoulik.txt", "fireworks.jpeg", "geo.protodata", "html",
+             "html_x_4", "kppkn.gtb", "lcet10.txt", "paper-100k.pdf", "plrabn12.txt", "urls.10K")
+    data = b"".join(load_corpus(n) for n in names)
+    stream = native.frame_compress(data)
+    for fn in (lambda: api.decompress_frame(stream),
+               lambda: read.FrameDecoder(io.BytesIO(stream), engine="device").read()):
+        for m in (crc32c, decode_flat, replay):
+            m.launches = 0
+        decode_flat.crc_launches = 0
+        assert fn() == data
+        assert decode_flat.crc_launches == decode_flat.launches >= 1
+        assert crc32c.launches == 0 and replay.launches == 0
 
 
 def test_flat_grouped_kernel_matches_plain(dev):
@@ -771,8 +864,11 @@ def test_entry_points_on_the_card(dev):
     stream = native.frame_compress(data)
     for m in (crc32c, decode_flat, replay):
         m.launches = 0
+    decode_flat.crc_launches = 0
     assert api.decompress_frame(stream) == data
-    assert crc32c.launches >= 1 and decode_flat.launches >= 1 and replay.launches == 0
+    # The flat route checks its chunks in K2's own launch: no K1.
+    assert crc32c.launches == 0 and decode_flat.crc_launches >= 1 and replay.launches == 0
+    assert decode_flat.launches >= 1
     body, declen = fallback_row()
     raw = write_varu64(declen) + body
     for m in (crc32c, decode_flat, replay):
@@ -905,7 +1001,7 @@ def test_record_scan_routes_on_the_card(dev, route):
 #: The kernels each device leg of the campaign launches on these cases (legs 3
 #: and 4 run tensor ops only).
 LEG_KERNELS = {
-    3: set(), 4: set(), 5: {"crc32c", "flat_gather[layout=0]", "flat_gather[layout=1]"},
+    3: set(), 4: set(), 5: {"flat_gather_crc", "flat_gather[layout=0]", "flat_gather[layout=1]"},
     8: {"flat_gather[layout=0]"}, 9: {"records"}, 10: {"flat_gather[layout=1]"},
     11: {"parse", "shift_idx", "emit_bytes"},
     12: {"resolve_fh", "flat_gather[layout=1]"},
@@ -946,7 +1042,7 @@ def test_timing_helpers_check_the_timed_calls(dev, timer):
 #: The host-against-card tools at small sizes, and the kernels each must launch.
 TOOL_RUNS = {
     "crossover_measure": (["--sizes", "65536,1048576"],
-                          {"crc32c", "flat_gather[layout=1]", "parse", "fused_emit"}),
+                          {"flat_gather_crc", "flat_gather[layout=1]", "parse", "fused_emit"}),
     "flatten_scale": (["--threads", "1,all"], {"flat_gather[layout=1]", "resolve_fh"}),
     "scaling_measure": (["--ranks", "1", "--blocks", "8"], {"encode"}),
 }
@@ -987,8 +1083,11 @@ def test_host_against_card_tool_on_the_card(dev, name, tmp_path, monkeypatch, ca
 def test_a_traced_call_waits_only_in_its_resolve(dev, views, monkeypatch):
     """With ``ops.api``'s recorder on, no part of a call synchronises: the
     only waits are the root's resolve of its device parts' events, after the
-    call's own copy back, and every device part gets its seconds."""
-    data = (load_corpus("alice29.txt") + load_corpus("fireworks.jpeg")) * 2 + b"tail" * 1000
+    call's own copy back, and every device part gets its seconds. The zeros
+    make chunks of narrower bodies: three launch groups, one device part
+    each (K2 checks the chunks in its own launch)."""
+    data = ((load_corpus("alice29.txt") + load_corpus("fireworks.jpeg")) * 2 + bytes(100000)
+            + b"tail" * 1000)
     stream = native.frame_compress(data)
     assert api.decompress_frame(stream) == data
     waits, resolving = [], [False]

@@ -180,6 +180,7 @@ def test_a_failing_kernel_raises_instead_of_taking_a_tensor_route(monkeypatch):
         raise RuntimeError("flat_gather: CUDA launch failed with error 1")
 
     monkeypatch.setattr(api, "decode_flat", broken)
+    monkeypatch.setattr(api, "decode_flat_crc", broken)  # the frame read's K2, with its checksum
     with configure(device="cpu"):
         with pytest.raises(RuntimeError, match="launch failed"):
             api.decompress_frame(native.frame_compress(FRAME_DATA))

@@ -449,3 +449,28 @@ def shard_decode_batch(blocks: np.ndarray, lens: np.ndarray):
     bits = np.zeros((len(srcs), srcs.shape[1] // 8), np.uint8)
     native.scan_ops_batch(srcs, src_lens.astype(np.uint64), bits)
     return srcs, src_lens, declens, bits
+
+
+#: ``(layout, d_pad)`` of K2 with the frame checksum's tests: rows of one
+#: unit under 16 KiB, of partial and whole units, up to eight.
+FLAT_CRC_SHAPES = [(0, 1024), (0, 8192), (0, 16384), (0, 20480), (0, 32768), (0, 65536),
+                   (1, 16384), (1, 32768), (1, 65536), (1, 131072)]
+
+
+def flat_crc_rows(d_pad: int, seed: int = 13) -> list[tuple[bytes, int]]:
+    """``(body, declen)`` rows for K2 with the frame checksum at ``d_pad``:
+    declens 0, 1, 15, 16, 16,383, 16,384, 16,385 and ``d_pad`` where they
+    fit (a short row's later units are dead), of text with copies and of
+    random bytes (literals)."""
+    from snappy_tpu_torch import native
+    from snappy_tpu_torch.format.varint import read_varu64
+
+    text = (REPO / "data" / "html").read_bytes()
+    text = text * (-(-d_pad // len(text)))
+    noise = np.random.default_rng(seed).integers(0, 256, d_pad, dtype=np.uint8).tobytes()
+    rows = []
+    for k, n in enumerate(n for n in (0, 1, 15, 16, 16383, 16384, 16385, d_pad) if n <= d_pad):
+        data = (noise if k % 2 else text)[:n]
+        c = native.compress(data)
+        rows.append((c[read_varu64(c)[1]:], n))
+    return rows
