@@ -2176,7 +2176,8 @@ def main() -> int:
     print(f"  peak device bytes above the resident set: {report['peak_device_bytes']}")
     for path in timed_paths:
         r = report[f"{path}_path"]
-        print(f"  {path} launch groups (rows, d_pad, route): {r['routes']}")
+        print(f"  {path} launch groups (rows, d_pad, route, width, live_in, live_out): "
+              f"{r['routes']}")
         print(f"  {path} end to end, warm (s): {r['e2e_s']}  GB/s of input/output: {r['e2e_GBps']}")
         for t in r["traced"]:
             print(f"  {path} traced run {t['e2e_s']} s: {t['parts_s']}, kernels "

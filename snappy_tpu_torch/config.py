@@ -95,8 +95,10 @@ class Config:
     - ``max_device_stream``: single raw streams past this decode on host.
     - ``max_device_output``: declared outputs past this decode on host.
     - ``max_dpad``: padded output width per launch group; wider groups
-      decode on the host (multi-MB raw streams; frame chunks never get
-      there).
+      decode on the host (frame chunks never get there). A group's
+      ``d_pad`` is its widest output rounded up to a power of two, so a
+      batch of raw streams just past 1 MiB (a Parquet page written a
+      little past its 1 MiB target) already turns down at the default.
     - ``replay_max_body``: the widest rows (compressed bytes) the replay
       kernel (K3) takes; a group the other kernel routes leave that is
       wider takes a tensor route (hosted, or all-device under

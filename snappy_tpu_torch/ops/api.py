@@ -94,10 +94,10 @@ from .resolve import decode_resolve_batch
 #: environment variable, each time), ``flatten`` (native index
 #: flatten, and its fallback check), ``scan`` (native op-record scan),
 #: ``h2d`` and ``d2h`` (copies; the flatten's indices are let go in the
-#: ``h2d`` that copies them), ``host_decode`` (oversized rows), ``unpack``
-#: (rows to bytes), ``stored_crc`` (checksums of uncompressed chunks and
-#: the check of every chunk's) and ``join`` (and letting go of the chunks'
-#: buffers).
+#: ``h2d`` that copies them), ``host_decode`` (oversized rows; its bytes
+#: their outputs), ``unpack`` (rows to bytes), ``stored_crc`` (checksums of
+#: uncompressed chunks and the check of every chunk's) and ``join`` (and
+#: letting go of the chunks' buffers).
 #: Device parts are timed between two CUDA events and wait for nothing:
 #: ``kernels`` (the launches), for the fast compress ``prepass`` and
 #: ``plan`` (the tensor ops before K4 and before K5), for the resolve route
@@ -134,10 +134,15 @@ spans: dict[str, float] | None = None
 records: list[dict] | None = None
 
 #: The route each decode launch group took, in order, while this is a list
-#: (set it to ``[]`` to start, ``None`` to stop): ``(rows, d_pad, route)``
-#: with ``route`` one of ``"flat"``, ``"replay"``, ``"records"``,
-#: ``"resolve"``, ``"parallel_hosted"`` and ``"parallel"``.
-routes: list[tuple[int, int, str]] | None = None
+#: (set it to ``[]`` to start, ``None`` to stop): ``(rows, d_pad, route,
+#: width, live_in, live_out)`` with ``route`` one of ``"flat"``,
+#: ``"replay"``, ``"records"``, ``"resolve"``, ``"parallel_hosted"``,
+#: ``"parallel"`` and ``"host"`` (a group past ``Config.max_dpad`` that
+#: :func:`decompress_streams` hands to the host codec); ``width`` is the
+#: group's source row width, ``live_in`` and ``live_out`` its compressed
+#: and uncompressed bytes, so that ``rows * width - live_in`` and ``rows *
+#: d_pad - live_out`` are the padding the group places on the card.
+routes: list[tuple[int, int, str, int, int, int]] | None = None
 
 #: ``(call, id)`` of the innermost open part in this context; a sharded
 #: entry's shard threads run in a copy of their caller's context, so their
@@ -531,7 +536,10 @@ def decode_group(srcs: np.ndarray, lens: np.ndarray, declens: list[int], d_pad: 
     on the device under ``Config.pure_device``. Returns ``(dst (B, d_pad)
     uint8 on dev, errs (B,) int32 numpy, crcs (B,) int64 on dev or
     None)``; the CRCs when ``with_crc`` (K2's on the flat route, K1's on
-    the others but the tensor routes, which take their own).
+    the others but the tensor routes, which take their own). A group
+    wider than ``Config.max_dpad`` never gets here while the host scan is
+    on: :func:`decompress_streams` decodes it with the host codec, the
+    ``"host"`` entry of :data:`routes`.
     """
     with _span("pack"):
         cfg = get_config()
@@ -586,8 +594,13 @@ def decode_group(srcs: np.ndarray, lens: np.ndarray, declens: list[int], d_pad: 
             crc = crc32c_masked_blocks(got[0], declens_t)
     if routes is not None:
         with _span("pack"):
-            routes.append((len(declens), d_pad, route))
+            _note_route(route, d_pad, srcs, lens, declens)
     return (*got, crc)
+
+
+def _note_route(route: str, d_pad: int, srcs: np.ndarray, lens, declens: list[int]) -> None:
+    """Append one launch group's entry to :data:`routes`, which is on."""
+    routes.append((len(declens), d_pad, route, srcs.shape[1], int(np.sum(lens)), sum(declens)))
 
 
 @_entry
@@ -605,6 +618,14 @@ def decompress_streams(
     ``Config.decode_rows_per_launch`` rows. ``with_crc=True`` also
     returns each output's masked CRC32C, computed on the device before
     the bytes leave it.
+
+    A group's ``d_pad`` is its widest output rounded up to a power of two;
+    past ``Config.max_dpad`` (streams just past 1 MiB already) the group
+    decodes with the multithreaded host codec, unless ``pure_device`` is
+    set, and enters :data:`routes` with the route ``"host"``. Every stream
+    is validated: a bad one gets a nonzero code in ``err_codes`` (its
+    output is then not defined), and the other streams of the call decode
+    as they would without it.
     """
     with _span("pack"):
         dev = resolve_device(device)
@@ -629,7 +650,7 @@ def decompress_streams(
             # here): the multithreaded host codec. Error codes come from
             # the host op scan, a lockstep mirror of device validation.
             # Under pure_device they decode on the device, in tensor ops.
-            with _span("host_decode"):
+            with _span("host_decode", nbytes=sum(gdecl)):
                 _, _, gerrs, _ = native.scan_records_batch(
                     srcs, np.asarray(lens, np.uint64), np.asarray(gdecl, np.uint64), 512
                 )
@@ -642,6 +663,8 @@ def decompress_streams(
                     if with_crc:
                         crcs[idxs[j]] = native.crc32c_masked(decoded[k])
                 errs[idxs] = gerrs
+            if routes is not None:
+                _note_route("host", d_pad, srcs, lens, gdecl)
         else:
             dst, gerrs, gcrc = decode_group(srcs, lens, gdecl, d_pad, dev, with_crc)
             with _span("d2h", nbytes=dst.nbytes + (gcrc.nbytes if with_crc else 0)):

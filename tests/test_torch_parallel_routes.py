@@ -145,7 +145,7 @@ def test_flatten_rejected_wide_row_takes_the_hosted_route():
     for cap, route in ((1 << 17, "replay"), (1 << 16, "parallel_hosted")):
         outs, errs, rts = _routes_of([body], [declen], replay_max_body=cap)
         assert outs[0] == want and not errs.any()
-        assert rts == [(1, 1 << 17, route)]
+        assert rts == [(1, 1 << 17, route, 81920, len(body), declen)]
 
 
 def test_oversized_group_under_pure_device_stays_on_the_device():
@@ -154,10 +154,11 @@ def test_oversized_group_under_pure_device_stays_on_the_device():
     JAX package."""
     data = load_corpus("alice29.txt")[:60000]
     body, declen = raw_body(data)
+    width = api._width_bucket(len(body))
     outs, _, rts = _routes_of([body], [declen], max_dpad=16384)
-    assert outs == [data] and rts == []  # the host codec
+    assert outs == [data] and rts == [(1, 65536, "host", width, len(body), declen)]
     outs, errs, rts = _routes_of([body], [declen], max_dpad=16384, pure_device=True)
-    assert outs == [data] and rts == [(1, 65536, "parallel")]
+    assert outs == [data] and rts == [(1, 65536, "parallel", width, len(body), declen)]
     with jconfig.configure(pure_device=True, pallas_max_dpad=16384):
         want = japi.decompress_streams([body], [declen])
     assert want[0] == outs and (want[1] == errs).all()

@@ -82,8 +82,11 @@ def test_wide_raw_stream(route, monkeypatch):
     records route replays it (6,934 records, within the 16 Ki cap)."""
     monkeypatch.setattr(api, "spans", {})
     data = load_corpus("html")
-    assert api.decompress(native.compress(data)) == data
-    assert api.routes == [(1, 1 << 17, "flat" if route == "resolve" else "records")]
+    stream = native.compress(data)
+    assert api.decompress(stream) == data
+    body = len(stream) - len(write_varu64(len(data)))
+    assert api.routes == [(1, 1 << 17, "flat" if route == "resolve" else "records",
+                           api._width_bucket(body), body, len(data))]
     assert "scan" in api.spans if route == "records" else "flatten" in api.spans
 
 
@@ -105,7 +108,8 @@ def test_record_cap_overflow(route, monkeypatch):
     assert api.decompress(write_varu64(len(data)) + body) == data
     want = "decode_replay" if route == "records" else "decode_flat"
     assert calls == [want]
-    assert api.routes == [(1, 32768, "replay" if route == "records" else "flat")]
+    assert api.routes == [(1, 32768, "replay" if route == "records" else "flat", 65536,
+                           len(body), len(data))]
 
 
 def test_a_flagged_group_falls_through_whole(route, monkeypatch):
@@ -118,8 +122,10 @@ def test_a_flagged_group_falls_through_whole(route, monkeypatch):
     outs, errs, _ = api.decompress_streams(bodies, declens)
     assert errs[0] != 0 and errs[1] == 0 and outs[1] == text
     np.testing.assert_array_equal(errs, japi.decompress_streams(bodies, declens)[1])
+    group = (2, 16384, "flat" if route == "resolve" else "records",
+             api._width_bucket(len(bodies[1])), sum(map(len, bodies)), sum(declens))
     if route == "resolve":
         assert calls == ["decode_resolve_batch", "decode_flat"]
-        assert api.routes == [(2, 16384, "flat")]
     else:
-        assert calls == ["decode_records"] and api.routes == [(2, 16384, "records")]
+        assert calls == ["decode_records"]
+    assert api.routes == [group]
