@@ -26,9 +26,9 @@ card. Phases:
    codec's frames. The kernels' launch counts are set to 0 just before
    each and read just after it; each path must have run its own kernels
    and no other (exact compress K7 only, the writer K1 and K7, the
-   frame path and the reader K2 with its checksum on every launch group
-   and no K1). The same frame stream is decoded again by the two
-   record-scan routes: under ``configure(decode_resolve=True)`` (K8, then
+   frame path and the reader K2 with its checksum over their launch groups,
+   one launch a layout, and no K1). The same frame stream is decoded again
+   by the two record-scan routes: under ``configure(decode_resolve=True)`` (K8, then
    K2 ``layout=1``, for every group the route takes; the tail group on
    the flat route) and under ``configure(decode_records=True)`` (K10 on
    every group, K3 only for a group whose records overflow the scan's
@@ -144,8 +144,13 @@ wrapper's host time a call on the host's clock. K2 with the frame
 checksum (``flat_gather_crc``, the frame path's one kernel) is held on
 the 455-row group against K2's bytes, K1's CRCs and the host codec's, and
 timed as K2 is, beside K2 then K1 on the same group (``pair_ms``); its
-bound counts K2's bytes. K5's ``ms`` is
-device-only too (its wrapper's calls in a graph), beside ``call_ms``, and
+bound counts K2's bytes. K2 over several launch groups in one launch
+(``decode_flat_groups``, ``flat_groups_row``) runs the 16 MiB frame
+read's five groups (each corpus file framed whole, as the frame cell's
+calls): each group's bytes and CRCs against the plain versions and the
+five one-group launches, one launch counting five groups and no K1, and
+its time device-only beside the five launches', with and without the
+checksum, which must not beat its bytes' bound. K5's ``ms`` is device-only too (its wrapper's calls in a graph), beside ``call_ms``, and
 its walk followed in numpy (``emit.fused_emit_walk``) must give the plain
 version's indices on the compress group's first 16 rows.
 
@@ -233,6 +238,7 @@ CORPUS = [
 STREAM_BYTES = (64 << 20) + 5000
 
 
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
@@ -303,6 +309,102 @@ def compressed_chunks(frame: bytes):
             out.append((payload[4 + h :], declen, pos))
         pos += 4 + ln
     return out
+
+
+def whole_files_frame(nbytes: int = 16 << 20) -> tuple[bytes, bytes]:
+    """``(data, stream)``: the frame cell's corpus files
+    (``benchmark/configs/snappy-testdata-frame.json``, in its order) in
+    turn, each framed whole by the host codec, until ``nbytes`` of data; the
+    frame read's calls as the frame cell makes them. At 16 MiB its
+    compressed chunks fall into five launch groups (6, 6, 54, 91 and 108
+    rows), each under one wave of K2."""
+    from snappy_tpu_torch import native
+
+    bench = os.path.join(HERE, "benchmark")
+    with open(os.path.join(bench, "configs", "snappy-testdata-frame.json")) as f:
+        names = json.load(f)["corpus"]
+    files = []
+    for name in names:
+        with open(os.path.join(bench, "corpus", name), "rb") as f:
+            files.append(f.read())
+    parts, total = [], 0
+    while total < nbytes:
+        parts.append(files[len(parts) % len(files)])
+        total += len(parts[-1])
+    return b"".join(parts), b"".join(native.frame_compress(p) for p in parts)
+
+
+def flat_groups_row(dev, ptxas: list[str]) -> dict:
+    """K2 with the checksum over the 16 MiB frame read's five launch groups
+    (:func:`whole_files_frame`, the frame cell's shape; each group under one
+    wave) in one launch (``decode_flat_groups``), against the five one-group
+    launches of ``decode_flat_crc``: each group's bytes and CRCs against the
+    plain versions and the five launches'; the launches, the checksum
+    launches and the groups one call counts; ``ms`` and ``separate_ms``
+    device-only (50 calls in a CUDA graph), with the output's GB/s over
+    each, and the same for K2 alone; the ``flat_gather`` lines of
+    ``ptxas``."""
+    from snappy_tpu_torch.ops import api, crc32c, decode_flat, packing, reset_launch_counts
+
+    _, stream = whole_files_frame()
+    chunks = compressed_chunks(stream)
+    bodies = [c[0] for c in chunks]
+    groups, shape, nbytes = [], [], 0
+    for g in api.launch_groups(bodies, 512):
+        gd = [chunks[i][1] for i in g]
+        width = api._width_bucket(len(bodies[g[0]]))
+        srcs, lens = packing.batch_streams([bodies[i] for i in g], width)
+        d_pad = packing.pad_to_bucket(max(gd), 1024)
+        idx, tmeta, fallb, herrs, _ = native_flatten(srcs, lens, gd, d_pad)
+        check(not fallb.any() and not herrs.any(), "the flatten rejected a row")
+        groups.append((*(torch.from_numpy(x).to(dev) for x in (
+            srcs, idx.view(np.int16), tmeta, np.asarray(gd, np.int32))), d_pad, 1))
+        shape.append([len(g), width, d_pad])
+        # K2's bound (the kernel table's): index and source bytes, tile data, output
+        nbytes += (2 * sum(gd) + int(lens.sum()) + 8 * sum(-(-n // 1024) for n in gd)
+                   + 4 * len(g) + len(g) * d_pad)
+    check(len(groups) == 5, f"the 16 MiB read's groups: {shape}")
+    out_bytes = sum(chunks[i][1] for i in range(len(chunks)))
+    reset_launch_counts()
+    got = decode_flat.decode_flat_groups(groups, True)
+    torch.cuda.synchronize()
+    counts = {"launches": decode_flat.launches, "crc_launches": decode_flat.crc_launches,
+              "launched_groups": decode_flat.launched_groups, "crc32c": crc32c.launches}
+    sep = [decode_flat.decode_flat_crc(*g) for g in groups]
+    equal, err = True, 0
+    for (out, crc), (s_out, s_crc), g in zip(got, sep, groups):
+        want = decode_flat.decode_flat_plain(*g)
+        want_crc = crc32c.crc32c_plain(want, g[3], masked=True)
+        equal &= (torch.equal(out, want) and torch.equal(out, s_out) and torch.equal(crc, s_crc)
+                  and torch.equal(crc, want_crc))
+        err = max(err, max_abs_err(out, want), max_abs_err(crc, want_crc))
+    bnd, by = bound_ms(nbytes)
+    one = lambda: decode_flat.decode_flat_groups(groups, True)  # noqa: E731
+    five = lambda: [decode_flat.decode_flat_crc(*g) for g in groups]  # noqa: E731
+    one_k2 = lambda: decode_flat.decode_flat_groups(groups)  # noqa: E731
+    five_k2 = lambda: [decode_flat.decode_flat(*g) for g in groups]  # noqa: E731
+    row = {
+        "name": "flat_gather_groups", "route": "cuda",
+        "source": "snappy_tpu_torch/csrc/flat_gather.cu stpu_cuda_flat_gather_groups",
+        "replaces": "snappy_tpu/ops/pallas/decode.py:1334 decode_flat_pallas_v2 on each launch "
+                    "group, then snappy_tpu/ops/pallas/crc32c.py:64 crc32c_blocks_pallas",
+        "shape": shape, "equal": bool(equal), "max_abs_err": err, "counts": counts,
+        "ms": device_ms(one, 50), "separate_ms": device_ms(five, 50),
+        "k2_ms": device_ms(one_k2, 50), "k2_separate_ms": device_ms(five_k2, 50),
+        "out_bytes": out_bytes, "bound_ms": bnd, "bound_by": by, "library_ms": None,
+        "ptxas": [ln for ln in ptxas if "flat_gather" in ln],
+    }
+    for k in ("ms", "separate_ms", "k2_ms", "k2_separate_ms"):
+        row[k.replace("ms", "GBps")] = out_bytes / (row[k] * 1e6)
+    return row
+
+
+def native_flatten(srcs, lens, declens, d_pad: int, layout: int = 1):
+    """The host flatten of a launch group (``native.flatten_idx_batch``)."""
+    from snappy_tpu_torch import native
+
+    return native.flatten_idx_batch(srcs, np.asarray(lens, np.uint64),
+                                    np.asarray(declens, np.uint64), d_pad, layout=layout)
 
 
 def literal(b: bytes) -> bytes:
@@ -890,7 +992,7 @@ def trace_flat_route(fn, out_dir: str):
     for e in events:
         if e.get("cat") == "user_annotation":
             labelled[e["name"]] = labelled.get(e["name"], 0.0) + e["dur"]
-    check(any("flat_kernel" in n for n in names) and not any("crc32c_rows_kernel" in n for n in names),
+    check(any("flat_groups_kernel" in n for n in names) and not any("crc32c_rows_kernel" in n for n in names),
           f"the trace holds no device event of K2, or one of K1 (kernels: {sorted(set(names))[:10]})")
     lo = min(e["ts"] for e in events)
     hi = max(e["ts"] + e["dur"] for e in events)
@@ -1369,6 +1471,19 @@ def main() -> int:
             print(f"K2 with the checksum: {kernels[-1]['ms']:.6f} ms device-only, K2 then K1 "
                   f"{kernels[-1]['pair_ms']:.6f} (bound {bnd:.6f})")
             check(f_equal, "K2 with the checksum differs from K2, K1 or the host codec")
+
+    # -- K2 over the 16 MiB frame read's five launch groups in one launch ----------
+    k = flat_groups_row(dev, ptxas)
+    kernels.append(k)
+    print(f"K2 over five groups: one launch {k['ms']:.6f} ms device-only ({k['GBps']:.2f} GB/s), "
+          f"five launches {k['separate_ms']:.6f} ({k['separate_GBps']:.2f}); K2 alone "
+          f"{k['k2_ms']:.6f} against {k['k2_separate_ms']:.6f}; bound {k['bound_ms']:.6f}; "
+          f"counts {k['counts']}")
+    check(min(k["ms"], k["k2_ms"]) >= k["bound_ms"],
+          "K2 over five groups reads faster than its bytes' bound: no true reading")
+    check(k["equal"], "K2 over several groups differs from its plain version or five launches")
+    check(k["counts"] == {"launches": 1, "crc_launches": 1, "launched_groups": 5, "crc32c": 0},
+          f"K2 over five groups: {k['counts']}")
 
     # -- K11 grouped flat gather (v3, v4) on the frame's largest group, as K2 gets it ----
     # With group_buckets' buckets it must give K2's bytes and the host codec's;
@@ -2001,11 +2116,10 @@ def main() -> int:
               f"a group of the {path} path left its route: {group_routes[path]}")
     for path in ("frame", "reader"):
         c = by_path[path]
-        check(c["crc32c"] == 0 and c["flat_gather_crc"] >= 1
-              and c["flat_gather_crc"] == c["flat_gather[layout=0]"] + c["flat_gather[layout=1]"],
-              f"K2 with its checksum on every group of the {path} path, and no K1: {c}")
-        check(c["flat_gather[layout=0]"] >= 1 and c["flat_gather[layout=1]"] >= 1,
-              f"K2 layouts on the {path} path: {c}")
+        check(c["crc32c"] == 0 and c["flat_gather_crc"] == 2
+              and c["flat_gather[layout=0]"] == 1 and c["flat_gather[layout=1]"] == 1,
+              f"K2 with its checksum over the {path} path's groups, one launch a layout, "
+              f"and no K1: {c}")
         check(c["replay"] == 0 and not any(c[k] for k in encode_names + scan_names),
               f"K3, a compress kernel or a record-scan kernel ran on the {path} path: {c}")
     c = by_path["frame_resolve"]
@@ -2104,6 +2218,8 @@ def main() -> int:
     print(f"ncu: {report['ncu']}")
 
     for k in kernels:
+        if k["name"] == "flat_gather_groups":  # its launches count under K2's names
+            continue
         k["launches_by_path"] = {path: c[k["name"]] for path, c in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
 

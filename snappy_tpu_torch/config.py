@@ -62,7 +62,10 @@ class Config:
       encoder, as the JAX package's ``None`` does on its TPU: the port's
       card plays the TPU's part. Carried from the JAX package's
       ``flat_encode``.
-    - ``decode_rows_per_launch``: rows per batched-decode launch group.
+    - ``decode_rows_per_launch``: the most rows a batched-decode launch
+      group packs. It bounds a packed group, not a launch: the flat
+      route's groups of a call share one launch of K2, while their card
+      bytes stay within one group of this many rows at ``max_dpad``.
     - ``decode_kernels``: decode launch groups with the kernel routes
       (flat, replay, and the record-scan routes below). ``None`` (the
       default) means on unless ``pure_device``; ``False`` pins the tensor

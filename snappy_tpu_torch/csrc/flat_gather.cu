@@ -84,9 +84,30 @@
 // conflicts. Why not a cluster a row, combined in unit 0's shared memory:
 // clusters of 4 left 8 of the 132 SMs idle, and the row waited 0.7-1.1 µs
 // on the cluster barrier or an mbarrier, against 0.3 µs for the atomic.
+//
+// Several launch groups in one launch (stpu_cuda_flat_gather_groups, every
+// K2 launch, of one group or more; K11 keeps its 2-D grid): a frame read's
+// groups, one a source width, are each often under one wave (528 CTAs at 4
+// an SM), so launched apart each costs a lone CTA's latency chain. One 1-D
+// grid over a call's groups fills the card instead (the 16 MiB read's five,
+// PERF.md §6); each group keeps its own widths, so no row is padded wider
+// and no copy grows.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+// One launch group of stpu_cuda_flat_gather_groups (ops/decode_flat.py
+// _FlatGroup). Outside the anonymous namespace: the C entry takes it.
+struct FlatGroup {
+  const uint8_t* srcs;
+  const uint16_t* idx;
+  const int32_t* tile_meta;
+  const int32_t* declens;
+  uint8_t* out;
+  int64_t* crc;
+  int64_t rows, s_width, d_pad;
+};
 
 namespace {
 
@@ -196,24 +217,25 @@ __device__ __forceinline__ uint32_t warp_xor(uint32_t r) {
   return r;
 }
 
+// One CTA's work: 16 KiB unit `unit` of row `b` (steps 1-7 above).
 template <int kLayout, bool kCrc>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-flat_kernel(const uint8_t* __restrict__ srcs, int s_width, const uint16_t* __restrict__ idx,
-            const int32_t* __restrict__ tile_meta, const int32_t* __restrict__ gbuck,
-            const int32_t* __restrict__ declens, int d_pad, int variant, int w0, int w1, int w2,
-            uint8_t* __restrict__ out, const uint32_t* __restrict__ crc_tabs,
-            int64_t* __restrict__ crc_out, unsigned long long* __restrict__ crc_state) {
+__device__ __forceinline__ void flat_unit(
+    const uint8_t* __restrict__ srcs, int s_width, const uint16_t* __restrict__ idx,
+    const int32_t* __restrict__ tile_meta, const int32_t* __restrict__ gbuck,
+    const int32_t* __restrict__ declens, int d_pad, int variant, int w0, int w1, int w2,
+    uint8_t* __restrict__ out, const uint32_t* __restrict__ crc_tabs,
+    int64_t* __restrict__ crc_out, unsigned long long* __restrict__ crc_state, int unit,
+    long long b) {
   constexpr int kStep = kLayout ? 128 : 1;  // output bytes between a chunk's indices
   __shared__ uint4 tile4[kUnit / 16];
   const int tid = threadIdx.x;
-  const long long b = blockIdx.y;
-  const int g0 = blockIdx.x * kUnit;
+  const int g0 = unit * kUnit;
   const int n_chunks = min(kUnit, d_pad - g0) / 8;
   const int lim = declens[b] - g0;  // live bytes of the unit
   bool live = lim > 0;
   int wlim = 1 << 16;  // above every uint16 index: K2 takes each byte
   if (gbuck != nullptr) {
-    const int gb = gbuck[b * (d_pad / kUnit) + blockIdx.x];
+    const int gb = gbuck[b * (d_pad / kUnit) + unit];
     live = live && (variant == 3 ? gb >= 0 && gb <= 2 : gb >= 0);
     wlim = (gb == 0 ? w0 : (gb == 1 ? w1 : w2)) * 128;
   }
@@ -222,7 +244,7 @@ flat_kernel(const uint8_t* __restrict__ srcs, int s_width, const uint16_t* __res
     // A row with no live unit: K1's value of no bytes. Written here, not in
     // the branch below: there it changed the live path's code and cost the
     // gather ~0.5 µs a CTA.
-    if (blockIdx.x == 0 && tid == 0 && !live) crc_out[b] = kEmptyCrc;
+    if (unit == 0 && tid == 0 && !live) crc_out[b] = kEmptyCrc;
   }
   if (!live) {
     for (int q = tid; q < n_chunks / 2; q += kThreads) dst[q] = make_uint4(0, 0, 0, 0);
@@ -248,8 +270,7 @@ flat_kernel(const uint8_t* __restrict__ srcs, int s_width, const uint16_t* __res
     const int last = e.last, lo = e.lo, hi = e.hi;
     uint32_t* t = crc_smem();
     stage(t, crc_tabs, 0, kStaged);
-    if (static_cast<int>(blockIdx.x) < last)
-      stage(t + kStaged, crc_tabs, kUnitAt + kOp * (last - blockIdx.x - 1), kOp);
+    if (unit < last) stage(t + kStaged, crc_tabs, kUnitAt + kOp * (last - unit - 1), kOp);
     if (lo) stage(t + kStaged + kOp, crc_tabs, kInvAt + kOp * (lo - 1), kOp);
     if (hi) stage(t + kStaged + 2 * kOp, crc_tabs, kInvAt + kOp * (kRadix - 2 + hi), kOp);
   }
@@ -304,7 +325,7 @@ flat_kernel(const uint8_t* __restrict__ srcs, int s_width, const uint16_t* __res
           for (int i = 0; i < kRun / 16; i++) run[i] = rolled[i];
         }
       }
-      if (tid == 0 && blockIdx.x == 0) run[0].x ^= 0xFFFFFFFFu;
+      if (tid == 0 && unit == 0) run[0].x ^= 0xFFFFFFFFu;
       uint32_t op[7];
       load_op(op, tabs, lane);  // M_4
       uint32_t r = 0;
@@ -327,13 +348,13 @@ flat_kernel(const uint8_t* __restrict__ srcs, int s_width, const uint16_t* __res
     if (lane != 0) return;
     // The unit's share of the row's register: to the live units' end, then
     // back past the zeros after declen.
-    if (static_cast<int>(blockIdx.x) < last) u = lookup8(tabs + kStaged, u);
+    if (unit < last) u = lookup8(tabs + kStaged, u);
     if (lo) u = lookup8(tabs + kStaged + kOp, u);
     if (hi) u = lookup8(tabs + kStaged + 2 * kOp, u);
     if (last > 0) {
       // The row's state: the XOR of its units' shares, and bit 32 + u for
       // each unit in. The unit that completes the bits has the register.
-      const unsigned long long mine = (1ull << (32 + blockIdx.x)) | u;
+      const unsigned long long mine = (1ull << (32 + unit)) | u;
       const unsigned long long full = ((1ull << (last + 1)) - 1) << 32;
       const unsigned long long now = atomicXor(crc_state + b, mine) ^ mine;
       if ((now & ~0xFFFFFFFFull) != full) return;
@@ -345,51 +366,117 @@ flat_kernel(const uint8_t* __restrict__ srcs, int s_width, const uint16_t* __res
   }
 }
 
-int launch(const uint8_t* srcs, long long n_rows, long long s_width, const uint16_t* idx,
-           const int32_t* tile_meta, const int32_t* gbuck, const int32_t* declens,
-           long long d_pad, int layout, int variant, int w0, int w1, int w2, uint8_t* out,
-           void* stream) {
-  const auto kernel = layout ? flat_kernel<1, false> : flat_kernel<0, false>;
-  const dim3 grid(static_cast<unsigned>((d_pad + kUnit - 1) / kUnit), static_cast<unsigned>(n_rows));
-  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      srcs, static_cast<int>(s_width), idx, tile_meta, gbuck, declens, static_cast<int>(d_pad),
-      variant, w0, w1, w2, out, nullptr, nullptr, nullptr);
-  return static_cast<int>(cudaGetLastError());
+// K11 (stpu_cuda_flat_grouped): a CTA a (unit, row) of a 2-D grid.
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+grouped_kernel(const uint8_t* __restrict__ srcs, int s_width, const uint16_t* __restrict__ idx,
+               const int32_t* __restrict__ tile_meta, const int32_t* __restrict__ gbuck,
+               const int32_t* __restrict__ declens, int d_pad, int variant, int w0, int w1,
+               int w2, uint8_t* __restrict__ out) {
+  flat_unit<1, false>(srcs, s_width, idx, tile_meta, gbuck, declens, d_pad, variant, w0, w1, w2,
+                      out, nullptr, nullptr, nullptr, blockIdx.x, blockIdx.y);
+}
+
+// Several launch groups of one layout in one launch (K2, with or without the
+// checksum; never K11's buckets). Group k runs CTAs [first[k], first[k + 1])
+// of a 1-D grid, a CTA a (row, unit) of its own rows and width with the unit
+// fastest, as a 2-D grid orders them; no CTA lies past a row's d_pad. A CTA
+// finds its group by comparing its index with first[1..], then runs the
+// body (flat_unit) on its (row, unit). The groups' rows take consecutive words of state
+// from state_row[k]. Entries past the last group hold first = the grid.
+constexpr int kMaxGroups = 16;  // ops/decode_flat.py MAX_LAUNCH_GROUPS
+
+struct Groups {
+  FlatGroup g[kMaxGroups];
+  int first[kMaxGroups + 1];
+  int units[kMaxGroups];
+  int state_row[kMaxGroups];
+};
+
+template <int kLayout, bool kCrc>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+flat_groups_kernel(const __grid_constant__ Groups l, const uint32_t* __restrict__ crc_tabs,
+                   unsigned long long* __restrict__ crc_state) {
+  const int cta = blockIdx.x;
+  int k = 0;
+#pragma unroll
+  for (int i = 1; i < kMaxGroups; i++) k += cta >= l.first[i];
+  const FlatGroup& g = l.g[k];
+  const int units = l.units[k];
+  const int local = cta - l.first[k];
+  const int row = local / units;
+  flat_unit<kLayout, kCrc>(g.srcs, static_cast<int>(g.s_width), g.idx, g.tile_meta, nullptr,
+                           g.declens, static_cast<int>(g.d_pad), 0, 0, 0, 0, g.out, crc_tabs,
+                           g.crc, kCrc ? crc_state + l.state_row[k] : nullptr, local - row * units,
+                           row);
 }
 
 }  // namespace
 
+// K2 over groups[0, n) in one launch, 1 <= n <= kMaxGroups, every group of
+// one layout and at least one row and unit: each group's out (and, with
+// crc_tabs, the checksum instance, its crc) as a launch of that group alone
+// would write them. With the checksum a group's d_pad is at most 8 units
+// and state holds the groups' rows' zeroed words, which are left zeroed:
+// the rows' units meet there.
+extern "C" int stpu_cuda_flat_gather_groups(const FlatGroup* groups, int n, int layout,
+                                            const uint32_t* crc_tabs,
+                                            unsigned long long* state, void* stream) {
+  if (n < 1 || n > kMaxGroups) return static_cast<int>(cudaErrorInvalidValue);
+  Groups l{};
+  long long ctas = 0, rows = 0;
+  for (int k = 0; k < n; k++) {
+    const FlatGroup& g = groups[k];
+    const long long units = (g.d_pad + kUnit - 1) / kUnit;
+    if (g.rows < 1 || units < 1 || (crc_tabs != nullptr && units > kMaxUnits))
+      return static_cast<int>(cudaErrorInvalidValue);
+    l.g[k] = g;
+    l.first[k] = static_cast<int>(ctas);
+    l.units[k] = static_cast<int>(units);
+    l.state_row[k] = static_cast<int>(rows);
+    ctas += units * g.rows;
+    rows += g.rows;
+    if (ctas > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  for (int k = n; k <= kMaxGroups; k++) l.first[k] = static_cast<int>(ctas);
+  const auto kernel = crc_tabs != nullptr ? (layout ? flat_groups_kernel<1, true>
+                                                    : flat_groups_kernel<0, true>)
+                                          : (layout ? flat_groups_kernel<1, false>
+                                                    : flat_groups_kernel<0, false>);
+  kernel<<<static_cast<unsigned>(ctas), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      l, crc_tabs, state);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2 on one group: stpu_cuda_flat_gather_groups with one entry.
 extern "C" int stpu_cuda_flat_gather(const uint8_t* srcs, int64_t n_rows, int64_t s_width,
                                      const uint16_t* idx, const int32_t* tile_meta,
                                      const int32_t* declens, int64_t d_pad, int layout,
                                      uint8_t* out, void* stream) {
-  return launch(srcs, n_rows, s_width, idx, tile_meta, nullptr, declens, d_pad, layout, 0, 0, 0,
-                0, out, stream);
+  const FlatGroup g{srcs, idx, tile_meta, declens, out, nullptr, n_rows, s_width, d_pad};
+  return stpu_cuda_flat_gather_groups(&g, 1, layout, nullptr, nullptr, stream);
 }
 
-extern "C" int stpu_cuda_flat_grouped(const uint8_t* srcs, int64_t n_rows, int64_t s_width,
-                                      const uint16_t* idx, const int32_t* tile_meta,
-                                      const int32_t* gbuck, const int32_t* declens,
-                                      int64_t d_pad, int variant, int w0, int w1, int w2,
-                                      uint8_t* out, void* stream) {
-  return launch(srcs, n_rows, s_width, idx, tile_meta, gbuck, declens, d_pad, 1, variant, w0, w1,
-                w2, out, stream);
-}
-
-// K2 with the frame checksum: crc[b] is the masked CRC32C of out[b, :declen]
-// (declen clamped to [0, d_pad]). d_pad is at most 8 units; state holds
-// n_rows zeroed words, and is left zeroed: the rows' units meet there.
+// K2 with the frame checksum on one group: crc[b] is the masked CRC32C of
+// out[b, :declen] (declen clamped to [0, d_pad]).
 extern "C" int stpu_cuda_flat_gather_crc(const uint8_t* srcs, int64_t n_rows, int64_t s_width,
                                          const uint16_t* idx, const int32_t* tile_meta,
                                          const int32_t* declens, int64_t d_pad, int layout,
                                          const uint32_t* crc_tabs, uint8_t* out, int64_t* crc,
                                          unsigned long long* state, void* stream) {
-  const auto kernel = layout ? flat_kernel<1, true> : flat_kernel<0, true>;
-  const unsigned units = static_cast<unsigned>((d_pad + kUnit - 1) / kUnit);
-  if (units < 1 || units > kMaxUnits) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(units, static_cast<unsigned>(n_rows));
-  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      srcs, static_cast<int>(s_width), idx, tile_meta, nullptr, declens, static_cast<int>(d_pad),
-      0, 0, 0, 0, out, crc_tabs, crc, state);
+  const FlatGroup g{srcs, idx, tile_meta, declens, out, crc, n_rows, s_width, d_pad};
+  return stpu_cuda_flat_gather_groups(&g, 1, layout, crc_tabs, state, stream);
+}
+
+// K11: K2 in layout 1 with a window bucket a 16 KiB group (gbuck), a CTA a
+// (unit, row) of a 2-D grid.
+extern "C" int stpu_cuda_flat_grouped(const uint8_t* srcs, int64_t n_rows, int64_t s_width,
+                                      const uint16_t* idx, const int32_t* tile_meta,
+                                      const int32_t* gbuck, const int32_t* declens,
+                                      int64_t d_pad, int variant, int w0, int w1, int w2,
+                                      uint8_t* out, void* stream) {
+  const dim3 grid(static_cast<unsigned>((d_pad + kUnit - 1) / kUnit), static_cast<unsigned>(n_rows));
+  grouped_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      srcs, static_cast<int>(s_width), idx, tile_meta, gbuck, declens, static_cast<int>(d_pad),
+      variant, w0, w1, w2, out);
   return static_cast<int>(cudaGetLastError());
 }

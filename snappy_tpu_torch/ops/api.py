@@ -9,8 +9,9 @@ groups rows by width, flattens copy chains with the native runtime, and
 moves fixed-shape batches to and from the device, where three kernels do
 the byte work:
 
-- K2 ``decode_flat`` emits every byte from its flattened source index,
-  and with the frame checksum (``decode_flat_crc``) also each row's CRC;
+- K2 ``decode_flat_groups`` emits every byte from its flattened source
+  index, in one launch over a call's flat launch groups, and with the
+  frame checksum also each row's CRC;
 - K3 ``decode_replay`` decodes the groups the flatten cannot window;
 - K1 ``crc32c_masked_blocks`` checks every frame chunk that another route
   decoded.
@@ -54,6 +55,7 @@ import itertools
 import resource
 import threading
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -77,7 +79,7 @@ from ..format.varint import read_varu64, write_varu64
 from . import _build, packing
 from .crc32c import crc32c_masked_blocks
 from .decode import decode_batch, decode_batch_hosted, decode_crc_batch, decode_crc_batch_hosted
-from .decode_flat import decode_flat, decode_flat_crc
+from .decode_flat import decode_flat_groups
 from .encode import compress_blocks_host
 from .encode_fast import compress_blocks_fast_host
 from .encode_flat import compress_blocks_flat_host
@@ -516,9 +518,24 @@ def _tensor_route(srcs, lens, srcs_t, declens_t, d_pad, scan: bool, with_crc: bo
     return dst, errs, (crc[0] if with_crc else None)
 
 
+class _Flat(NamedTuple):
+    """A launch group that the flatten took, its inputs on the card: the
+    group as :func:`decode_flat_groups` takes it, and its host codes."""
+
+    group: tuple
+    errs: np.ndarray
+
+
+def _card_bytes(rows: int, width: int, d_pad: int) -> int:
+    """The card bytes of a launch group on the flat route: its sources and
+    lengths, the flatten's indices and tile meta, its output and CRCs."""
+    return rows * (width + 4 + 2 * d_pad + 8 * (d_pad // 1024) + d_pad + 8)
+
+
 def decode_group(srcs: np.ndarray, lens: np.ndarray, declens: list[int], d_pad: int,
                  dev: torch.device, with_crc: bool = False):
-    """Decode one launch group of zero-padded bodies on ``dev``.
+    """Decode one launch group of zero-padded bodies on ``dev``, or make it
+    ready for K2.
 
     The kernel routes, in the JAX package's order, when they are on
     (:func:`decode_routes`) and ``d_pad`` is within ``Config.max_dpad``:
@@ -529,16 +546,18 @@ def decode_group(srcs: np.ndarray, lens: np.ndarray, declens: list[int], d_pad: 
     ``Config.decode_flat`` (the default), the host flatten resolves every
     copy chain and K2 gathers the bytes (``layout=1`` when ``d_pad`` is
     whole 16 KiB groups, else 0), with the CRCs in the same launch when
-    ``with_crc``. A group these leave (a record-cap
+    ``with_crc``: the group comes back as a :class:`_Flat`, its indices on
+    the card, for the launch that :func:`decompress_streams` makes over
+    every such group of the call. A group these leave (a record-cap
     overflow, a flagged resolve, a tile the flatten cannot window) takes
     K3 if its rows are at most ``Config.replay_max_body`` wide. Every other
     group decodes in tensor ops: from the host's op-start bitmap, or all
-    on the device under ``Config.pure_device``. Returns ``(dst (B, d_pad)
-    uint8 on dev, errs (B,) int32 numpy, crcs (B,) int64 on dev or
-    None)``; the CRCs when ``with_crc`` (K2's on the flat route, K1's on
-    the others but the tensor routes, which take their own). A group
-    wider than ``Config.max_dpad`` never gets here while the host scan is
-    on: :func:`decompress_streams` decodes it with the host codec, the
+    on the device under ``Config.pure_device``. Returns, but on the flat
+    route, ``(dst (B, d_pad) uint8 on dev, errs (B,) int32 numpy, crcs (B,)
+    int64 on dev or None)``; the CRCs when ``with_crc`` (K1's, but on the
+    tensor routes, which take their own). A group wider than
+    ``Config.max_dpad`` never gets here while the host scan is on:
+    :func:`decompress_streams` decodes it with the host codec, the
     ``"host"`` entry of :data:`routes`.
     """
     with _span("pack"):
@@ -569,13 +588,10 @@ def decode_group(srcs: np.ndarray, lens: np.ndarray, declens: list[int], d_pad: 
                 idx_t = torch.from_numpy(idx.view(np.int16)).to(dev)
                 tmeta_t = torch.from_numpy(tmeta).to(dev)
                 del idx, tmeta  # the copies' sources go here, not as the group returns
-            with _span("kernels", dev):
-                if with_crc:
-                    dst, crc = decode_flat_crc(srcs_t, idx_t, tmeta_t, declens_t, d_pad, layout)
-                else:
-                    dst = decode_flat(srcs_t, idx_t, tmeta_t, declens_t, d_pad, layout)
-                got = dst, herrs
-            route = "flat"
+            if routes is not None:
+                with _span("pack"):
+                    _note_route("flat", d_pad, srcs, lens, declens)
+            return _Flat((srcs_t, idx_t, tmeta_t, declens_t, d_pad, layout), herrs)
     if got is None and kernels and srcs.shape[1] <= cfg.replay_max_body:
         with _span("h2d", nbytes=4 * len(lens)):
             lens_t = torch.from_numpy(np.asarray(lens, np.int32)).to(dev)
@@ -613,11 +629,18 @@ def decompress_streams(
     """Batched device decode of raw op streams (no varint headers).
 
     Returns ``(outputs, err_codes, crcs-or-None)`` in input order. Rows
-    are grouped by width bucket so small chunks don't pay the widest
-    row's traffic, and large groups run as several launches of at most
-    ``Config.decode_rows_per_launch`` rows. ``with_crc=True`` also
-    returns each output's masked CRC32C, computed on the device before
-    the bytes leave it.
+    are packed into launch groups by width bucket, so small chunks don't
+    pay the widest row's traffic, of at most
+    ``Config.decode_rows_per_launch`` rows each. Every group the flat route
+    takes (:func:`decode_group`) decodes in one launch of K2 after all are
+    ready (one a layout and checksum kind, ``decode_flat_groups``), so
+    groups that are each under one wave fill the card together; a group
+    joins that launch only while the groups it holds stay within the card
+    bytes of one group of ``decode_rows_per_launch`` rows at ``max_dpad``
+    (:func:`_card_bytes`), else the groups held launch first. Other routes
+    decode their group as they meet it. ``with_crc=True`` also returns each
+    output's masked CRC32C, computed on the device before the bytes leave
+    it.
 
     A group's ``d_pad`` is its widest output rounded up to a power of two;
     past ``Config.max_dpad`` (streams just past 1 MiB already) the group
@@ -639,6 +662,31 @@ def decompress_streams(
         errs = np.zeros(len(bodies), np.int32)
         crcs = np.zeros(len(bodies), np.uint32) if with_crc else None
         groups = launch_groups(bodies, cfg.decode_rows_per_launch)
+        budget = _card_bytes(cfg.decode_rows_per_launch, cfg.max_dpad, cfg.max_dpad)
+
+    def take(idxs, group, gdecl, dst, gerrs, gcrc):
+        """Copy one group's rows back and unpack them."""
+        with _span("d2h", nbytes=dst.nbytes + (gcrc.nbytes if with_crc else 0)):
+            gcrc = gcrc.cpu().numpy() if with_crc else None
+            dst = dst.cpu().numpy()
+        with _span("unpack", nbytes=sum(gdecl)):
+            for j, i in enumerate(idxs):
+                outs[i] = dst[j, : gdecl[j]].tobytes()
+                if gcrc is not None:
+                    crcs[i] = gcrc[j]
+            errs[idxs] = gerrs
+        if cfg.debug:
+            _debug_check_streams(group, gdecl, [outs[i] for i in idxs], gerrs)
+
+    def launch(flat):
+        """K2 over the flat route's groups held, then each group taken back
+        in input order."""
+        with _span("kernels", dev):
+            got = decode_flat_groups([f.group for *_, f in flat], with_crc)
+        for (idxs, group, gdecl, f), (dst, gcrc) in zip(flat, got):
+            take(idxs, group, gdecl, dst, f.errs, gcrc)
+
+    flat, held = [], 0  # the flat route's groups, and their card bytes
     for idxs in groups:
         with _span("pack"):
             group = [bodies[i] for i in idxs]
@@ -665,19 +713,21 @@ def decompress_streams(
                 errs[idxs] = gerrs
             if routes is not None:
                 _note_route("host", d_pad, srcs, lens, gdecl)
+            if cfg.debug:
+                _debug_check_streams(group, gdecl, [outs[i] for i in idxs], gerrs)
+            continue
+        need = _card_bytes(len(idxs), srcs.shape[1], d_pad)
+        if flat and held + need > budget:
+            launch(flat)
+            flat, held = [], 0
+        got = decode_group(srcs, lens, gdecl, d_pad, dev, with_crc)
+        if isinstance(got, _Flat):
+            flat.append((idxs, group, gdecl, got))
+            held += need
         else:
-            dst, gerrs, gcrc = decode_group(srcs, lens, gdecl, d_pad, dev, with_crc)
-            with _span("d2h", nbytes=dst.nbytes + (gcrc.nbytes if with_crc else 0)):
-                gcrc = gcrc.cpu().numpy() if with_crc else None
-                dst = dst.cpu().numpy()
-            with _span("unpack", nbytes=sum(gdecl)):
-                for j, i in enumerate(idxs):
-                    outs[i] = dst[j, : gdecl[j]].tobytes()
-                    if gcrc is not None:
-                        crcs[i] = gcrc[j]
-                errs[idxs] = gerrs
-        if cfg.debug:
-            _debug_check_streams(group, gdecl, [outs[i] for i in idxs], gerrs)
+            take(idxs, group, gdecl, *got)
+    if flat:
+        launch(flat)
     return outs, errs, crcs
 
 

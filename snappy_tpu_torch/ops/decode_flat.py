@@ -30,6 +30,11 @@ the frame read would otherwise take from K1 after K2. A row's CTAs combine
 their 16 KiB units' shares of its register in a 64-bit word of state a row
 (one atomic a unit), so rows of up to :data:`MAX_CRC_UNITS` units; wider
 rows take K2 and then K1.
+
+:func:`decode_flat_groups` decodes several launch groups, each of its own
+rows and widths, in one launch of the same kernel a layout and checksum
+kind: a CTA finds its group from a table in the launch's parameters, so
+groups that are each under one wave of the card fill it together.
 """
 
 from __future__ import annotations
@@ -48,11 +53,13 @@ from .crc32c import (
 
 #: Kernel launches since the count was last reset: K2 in all and per
 #: layout (its checksum instance included), K2 with the checksum
-#: (``crc_launches``), K11 per variant.
+#: (``crc_launches``), K11 per variant; and the launch groups that K2's
+#: launches decoded (``launched_groups``).
 launches = 0
 layout_launches = [0, 0]
 crc_launches = 0
 grouped_launches = {3: 0, 4: 0}
+launched_groups = 0
 
 GROUP = 16384  # output bytes per bucket group (16 tiles of 1024)
 NOMINAL_WINDOWS = (128, 256, 512)  # window rows of buckets 0, 1, 2
@@ -61,6 +68,8 @@ LEVELS = 7  # the tree that joins a unit's 128 runs
 FIVE = 196  # words of an operator's 5-bit tables
 MAX_CRC_UNITS = 8  # a row's units, a bit each in its state (csrc/flat_gather.cu kMaxUnits)
 TAIL_RADIX = 128  # the zeros past declen in the last live unit, below 2**14, in base 128
+MAX_LAUNCH_GROUPS = 16  # groups a decode_flat_groups launch (csrc/flat_gather.cu kMaxGroups)
+STATE_WORDS = 65535  # a stream's words of checksum state, one a row of a launch
 
 
 def phys_index(d, layout: int):
@@ -106,15 +115,6 @@ def _cuda_checks(tensors, b: int, s: int) -> None:
         raise ValueError(f"{b} rows exceed one launch's grid")
 
 
-@functools.cache
-def _kernel():
-    fn = _build.kernel_lib("flat_gather").stpu_cuda_flat_gather
-    p, i64 = ctypes.c_void_p, ctypes.c_int64
-    fn.argtypes = [p, i64, i64, p, p, p, i64, ctypes.c_int, p, p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _flat_checks(srcs, idx, tile_meta, declens, d_pad: int, layout: int) -> None:
     """K2's argument checks, with or without the checksum."""
     b = srcs.shape[0]
@@ -141,23 +141,7 @@ def decode_flat(srcs, idx, tile_meta, declens, d_pad: int, layout: int):
     int32; ``declens``: ``(B,)`` int32. A CUDA input launches the kernel
     (or raises); a CPU input runs :func:`decode_flat_plain`.
     """
-    b, s = srcs.shape
-    _flat_checks(srcs, idx, tile_meta, declens, d_pad, layout)
-    tensors = (srcs, idx, tile_meta, declens)
-    if srcs.device.type == "cpu":
-        return decode_flat_plain(srcs, idx, tile_meta, declens, d_pad, layout)
-    _cuda_checks(tensors, b, s)
-    out = torch.empty((b, d_pad), dtype=torch.uint8, device=srcs.device)
-    if b == 0 or d_pad == 0:
-        return out
-    _build.count(globals(), "launches")
-    _build.count(layout_launches, layout)
-    _build.launch(
-        srcs.device, "flat_gather", _kernel(),
-        srcs.data_ptr(), b, s, idx.data_ptr(), tile_meta.data_ptr(),
-        declens.data_ptr(), d_pad, layout, out.data_ptr(),
-    )
-    return out
+    return decode_flat_groups([(srcs, idx, tile_meta, declens, d_pad, layout)])[0][0]
 
 
 def tail_counts() -> list[int]:
@@ -203,17 +187,8 @@ def _crc_scratch(device) -> tuple[torch.Tensor, torch.Tensor]:
             torch.cuda.synchronize(device)  # copied in before any stream of any thread reads them
             _crc_tables[device.index] = tabs
     state = _build.stream_state(device, "flat_gather_crc",
-                                lambda: torch.zeros(65535, dtype=torch.int64, device=device))
+                                lambda: torch.zeros(STATE_WORDS, dtype=torch.int64, device=device))
     return tabs, state
-
-
-@functools.cache
-def _crc_kernel():
-    fn = _build.kernel_lib("flat_gather").stpu_cuda_flat_gather_crc
-    p, i64 = ctypes.c_void_p, ctypes.c_int64
-    fn.argtypes = [p, i64, i64, p, p, p, i64, ctypes.c_int, p, p, p, p, p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def decode_flat_crc(srcs, idx, tile_meta, declens, d_pad: int, layout: int):
@@ -226,30 +201,102 @@ def decode_flat_crc(srcs, idx, tile_meta, declens, d_pad: int, layout: int):
     K2 and then K1. A CPU input runs :func:`decode_flat_plain` and
     ``crc32c_plain``. A card's and a stream's first launch must come
     before any CUDA graph capture on them (:func:`_crc_scratch`)."""
-    b, s = srcs.shape
-    _flat_checks(srcs, idx, tile_meta, declens, d_pad, layout)
-    if srcs.device.type == "cpu":
-        out = decode_flat_plain(srcs, idx, tile_meta, declens, d_pad, layout)
-        return out, crc32c_plain(out, declens, masked=True)
-    if -(-d_pad // GROUP) > MAX_CRC_UNITS or d_pad == 0:
-        out = decode_flat(srcs, idx, tile_meta, declens, d_pad, layout)
-        return out, crc32c_masked_blocks(out, declens)
-    tensors = (srcs, idx, tile_meta, declens)
-    _cuda_checks(tensors, b, s)
-    out = torch.empty((b, d_pad), dtype=torch.uint8, device=srcs.device)
-    crc = torch.empty(b, dtype=torch.int64, device=srcs.device)
-    if b == 0:
-        return out, crc
-    tabs, state = _crc_scratch(srcs.device)
-    _build.count(globals(), "launches")
-    _build.count(layout_launches, layout)
-    _build.count(globals(), "crc_launches")
-    _build.launch(
-        srcs.device, "flat_gather_crc", _crc_kernel(),
-        srcs.data_ptr(), b, s, idx.data_ptr(), tile_meta.data_ptr(), declens.data_ptr(), d_pad,
-        layout, tabs.data_ptr(), out.data_ptr(), crc.data_ptr(), state.data_ptr(),
-    )
-    return out, crc
+    return decode_flat_groups([(srcs, idx, tile_meta, declens, d_pad, layout)], True)[0]
+
+
+class _FlatGroup(ctypes.Structure):
+    """One launch group of a ``stpu_cuda_flat_gather_groups`` launch
+    (``csrc/flat_gather.cu`` ``FlatGroup``): its tensors' addresses, ``crc``
+    0 without the checksum, then its rows and widths."""
+
+    _fields_ = [*((f, ctypes.c_void_p) for f in ("srcs", "idx", "tile_meta", "declens", "out",
+                                                  "crc")),
+                *((f, ctypes.c_int64) for f in ("rows", "s_width", "d_pad"))]
+
+
+@functools.cache
+def _groups_kernel():
+    fn = _build.kernel_lib("flat_gather").stpu_cuda_flat_gather_groups
+    p = ctypes.c_void_p
+    fn.argtypes = [ctypes.POINTER(_FlatGroup), ctypes.c_int, ctypes.c_int, p, p, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_sets(members: list[int], rows: list[int], crc: bool) -> list[list[int]]:
+    """``members`` in order, cut into launches of at most
+    :data:`MAX_LAUNCH_GROUPS` groups and, with the checksum, at most
+    :data:`STATE_WORDS` rows (``rows[i]``: group ``i``'s)."""
+    sets: list[list[int]] = []
+    held = 0
+    for i in members:
+        if (not sets or len(sets[-1]) == MAX_LAUNCH_GROUPS
+                or (crc and held + rows[i] > STATE_WORDS)):
+            sets.append([])
+            held = 0
+        sets[-1].append(i)
+        held += rows[i]
+    return sets
+
+
+def decode_flat_groups(groups, with_crc: bool = False):
+    """Decode launch groups, each ``(srcs, idx, tile_meta, declens, d_pad,
+    layout)`` as :func:`decode_flat` takes them, in as few launches as
+    their kinds allow. Returns each group's ``(out, crc)``: ``crc`` as
+    :func:`decode_flat_crc` gives it when ``with_crc``, else ``None``.
+
+    Groups of one layout and one kernel instance share a launch (K2 with the
+    checksum for rows of at most :data:`MAX_CRC_UNITS` units when
+    ``with_crc``; K2 alone, then K1 on each group, for wider ones), up to
+    :data:`MAX_LAUNCH_GROUPS` groups and, with the checksum, a stream's
+    :data:`STATE_WORDS` rows a launch. Each launch counts
+    in :data:`launches` (and ``layout_launches``, ``crc_launches``) and its
+    groups in :data:`launched_groups`. CPU inputs run
+    :func:`decode_flat_plain` on each group (and ``crc32c_plain``)."""
+    for srcs, idx, tile_meta, declens, d_pad, layout in groups:
+        _flat_checks(srcs, idx, tile_meta, declens, d_pad, layout)
+    if not groups:
+        return []
+    dev = groups[0][0].device
+    if any(g[0].device != dev for g in groups):
+        raise ValueError("all groups must be on one device")
+    if dev.type == "cpu":
+        outs = [decode_flat_plain(*g) for g in groups]
+        return [(out, crc32c_plain(out, g[3], masked=True) if with_crc else None)
+                for out, g in zip(outs, groups)]
+    results, kinds = [], {}
+    for i, (srcs, idx, tile_meta, declens, d_pad, layout) in enumerate(groups):
+        b, s = srcs.shape
+        _cuda_checks((srcs, idx, tile_meta, declens), b, s)
+        fused = with_crc and 0 < d_pad and -(-d_pad // GROUP) <= MAX_CRC_UNITS
+        out = torch.empty((b, d_pad), dtype=torch.uint8, device=dev)
+        results.append((out, torch.empty(b, dtype=torch.int64, device=dev) if fused else None))
+        if b and d_pad:
+            kinds.setdefault((layout, fused), []).append(i)
+    rows = [g[0].shape[0] for g in groups]
+    for (layout, fused), members in kinds.items():
+        tabs, state = _crc_scratch(dev) if fused else (None, None)
+        for part in _launch_sets(members, rows, fused):
+            table = (_FlatGroup * len(part))()
+            for t, i in zip(table, part):
+                srcs, idx, tile_meta, declens, d_pad, _ = groups[i]
+                out, crc = results[i]
+                t.srcs, t.idx, t.tile_meta, t.declens = (
+                    srcs.data_ptr(), idx.data_ptr(), tile_meta.data_ptr(), declens.data_ptr())
+                t.out, t.crc = out.data_ptr(), crc.data_ptr() if fused else 0
+                t.rows, t.s_width, t.d_pad = rows[i], srcs.shape[1], d_pad
+            _build.count(globals(), "launches")
+            _build.count(layout_launches, layout)
+            if fused:
+                _build.count(globals(), "crc_launches")
+            _build.count(globals(), "launched_groups", len(part))
+            _build.launch(dev, "flat_gather_groups", _groups_kernel(), table, len(part), layout,
+                          tabs.data_ptr() if fused else None,
+                          state.data_ptr() if fused else None)
+    if with_crc:
+        results = [(out, crc32c_masked_blocks(out, g[3]) if crc is None else crc)
+                   for (out, crc), g in zip(results, groups)]
+    return results
 
 
 def group_buckets(tile_meta, declens, d_pad: int):

@@ -271,6 +271,125 @@ def test_frame_read_of_the_corpus_runs_no_k1(dev):
         assert crc32c.launches == 0 and replay.launches == 0
 
 
+def _frame_groups(dev, layout):
+    """The 16 MiB frame read's launch groups (``whole_files_frame``: five,
+    each under one wave of K2), flattened in ``layout`` and on the card as
+    ``decode_flat_groups`` takes them."""
+    from chip_smoke import compressed_chunks, whole_files_frame
+
+    chunks = compressed_chunks(whole_files_frame()[1])
+    bodies, declens = [c[0] for c in chunks], [c[1] for c in chunks]
+    groups = []
+    for g in api.launch_groups(bodies, 512):
+        gd = [declens[i] for i in g]
+        d_pad = packing.pad_to_bucket(max(gd), 1024)
+        srcs, idx, tmeta, dl = _flatten([(bodies[i], declens[i]) for i in g], d_pad, layout,
+                                        api._width_bucket(len(bodies[g[0]])))
+        groups.append((*(torch.from_numpy(x).to(dev) for x in (srcs, idx.view(np.int16), tmeta,
+                                                               dl)), d_pad, layout))
+    assert len(groups) == 5
+    return groups
+
+
+def _counts():
+    return (decode_flat.launches, decode_flat.layout_launches[:], decode_flat.crc_launches,
+            decode_flat.launched_groups, crc32c.launches)
+
+
+@pytest.mark.parametrize("with_crc", [False, True], ids=["k2", "k2_crc"])
+@pytest.mark.parametrize("layout", [0, 1])
+def test_flat_groups_kernel_matches_plain(dev, layout, with_crc):
+    """K2 over the frame read's five launch groups in one launch, with and
+    without the checksum, in both layouts: each group's bytes and CRCs as
+    its plain version gives them; one launch counting five groups, no K1.
+    Twenty groups (the five, four times) take two launches of 16 and 4."""
+    groups = _frame_groups(dev, layout)
+    before = _counts()
+    got = decode_flat.decode_flat_groups(groups, with_crc)
+    torch.cuda.synchronize()
+    after = _counts()
+    assert after[0] == before[0] + 1 and after[2] == before[2] + with_crc
+    assert after[1][layout] == before[1][layout] + 1 and after[3] == before[3] + 5
+    assert after[4] == before[4]
+    for (out, crc), g in zip(got, groups):
+        want = decode_flat.decode_flat_plain(*g)
+        assert torch.equal(out, want)
+        if with_crc:
+            assert torch.equal(crc, crc32c.crc32c_plain(want, g[3], masked=True))
+        else:
+            assert crc is None
+    many = decode_flat.decode_flat_groups(groups * 4, with_crc)
+    torch.cuda.synchronize()
+    assert decode_flat.launches == after[0] + 2 and decode_flat.launched_groups == after[3] + 20
+    assert all(torch.equal(m[0], o[0]) and (not with_crc or torch.equal(m[1], o[1]))
+               for m, o in zip(many, got * 4))
+
+
+def test_flat_groups_kernel_launches_once_a_layout(dev):
+    """Groups of both layouts in one call: one launch of each, each group
+    its plain version's bytes and CRCs."""
+    g0, g1 = _frame_groups(dev, 0), _frame_groups(dev, 1)
+    groups = [g for pair in zip(g0, g1) for g in pair]
+    before = _counts()
+    got = decode_flat.decode_flat_groups(groups, True)
+    torch.cuda.synchronize()
+    after = _counts()
+    assert after[0] == before[0] + 2 and after[2] == before[2] + 2 and after[3] == before[3] + 10
+    assert [a - b for a, b in zip(after[1], before[1])] == [1, 1]
+    for (out, crc), g in zip(got, groups):
+        want = decode_flat.decode_flat_plain(*g)
+        assert torch.equal(out, want)
+        assert torch.equal(crc, crc32c.crc32c_plain(want, g[3], masked=True))
+
+
+@pytest.mark.parametrize("layout", [0, 1])
+def test_one_group_c_entries_are_the_groups_kernel(dev, layout):
+    """The one-group C entries ``stpu_cuda_flat_gather`` and
+    ``stpu_cuda_flat_gather_crc`` (signatures unchanged, now one-entry
+    launches of the groups kernel) give each group's plain bytes and CRCs."""
+    import ctypes
+
+    from snappy_tpu_torch.ops import _build
+
+    lib = _build.kernel_lib("flat_gather")
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.stpu_cuda_flat_gather.argtypes = [p, i64, i64, p, p, p, i64, ctypes.c_int, p, p]
+    lib.stpu_cuda_flat_gather_crc.argtypes = [p, i64, i64, p, p, p, i64, ctypes.c_int,
+                                              p, p, p, p, p]
+    tabs, state = decode_flat._crc_scratch(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for g in _frame_groups(dev, layout):
+        srcs, idx, tmeta, dl, d_pad, _ = g
+        b, s = srcs.shape
+        ins = (srcs.data_ptr(), b, s, idx.data_ptr(), tmeta.data_ptr(), dl.data_ptr(), d_pad,
+               layout)
+        out, out_c = (torch.empty((b, d_pad), dtype=torch.uint8, device=dev) for _ in range(2))
+        crc = torch.empty(b, dtype=torch.int64, device=dev)
+        assert lib.stpu_cuda_flat_gather(*ins, out.data_ptr(), stream) == 0
+        assert lib.stpu_cuda_flat_gather_crc(*ins, tabs.data_ptr(), out_c.data_ptr(),
+                                             crc.data_ptr(), state.data_ptr(), stream) == 0
+        torch.cuda.synchronize()
+        want = decode_flat.decode_flat_plain(*g)
+        assert torch.equal(out, want) and torch.equal(out_c, want)
+        assert torch.equal(crc, crc32c.crc32c_plain(want, dl, masked=True))
+
+
+def test_frame_read_of_16_mib_is_one_checksum_launch(dev):
+    """One ``decompress_frame`` of the 16 MiB read: one launch of K2 with
+    the checksum over its five launch groups, no K1; a second call on the
+    same stream gives the bytes again (the launch left the rows' words of
+    state zeroed)."""
+    from chip_smoke import whole_files_frame
+    from snappy_tpu_torch.ops import reset_launch_counts
+
+    data, stream = whole_files_frame()
+    for k in (1, 2):
+        reset_launch_counts()
+        assert api.decompress_frame(stream) == data
+        assert (decode_flat.launches, decode_flat.crc_launches, decode_flat.launched_groups,
+                crc32c.launches) == (1, 1, 5, 0), k
+
+
 def test_flat_grouped_kernel_matches_plain(dev):
     """K11, v3 and v4, against its plain version: on corpus rows at 64 KiB,
     the wide stream at 1 MiB and rows of the 81,920-byte width (with a row
@@ -1084,8 +1203,8 @@ def test_a_traced_call_waits_only_in_its_resolve(dev, views, monkeypatch):
     """With ``ops.api``'s recorder on, no part of a call synchronises: the
     only waits are the root's resolve of its device parts' events, after the
     call's own copy back, and every device part gets its seconds. The zeros
-    make chunks of narrower bodies: three launch groups, one device part
-    each (K2 checks the chunks in its own launch)."""
+    make chunks of narrower bodies: three launch groups, which K2 decodes
+    and checks in one launch, one device part."""
     data = ((load_corpus("alice29.txt") + load_corpus("fireworks.jpeg")) * 2 + bytes(100000)
             + b"tail" * 1000)
     stream = native.frame_compress(data)
@@ -1113,7 +1232,7 @@ def test_a_traced_call_waits_only_in_its_resolve(dev, views, monkeypatch):
     assert waits and set(waits) == {("event", True)}
     if api.records is not None:
         device = [r for r in api.records if r["name"] == "kernels"]
-        assert len(waits) == len(device) >= 2
+        assert len(waits) == len(device) == 1
         assert all(0 < r["device_s"] < 1 for r in device)
     if api.spans is not None:
         assert api.spans["kernels"] > 0 and "decompress_frame" not in api.spans

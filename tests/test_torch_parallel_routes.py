@@ -180,8 +180,7 @@ def test_a_failing_kernel_raises_instead_of_taking_a_tensor_route(monkeypatch):
     def broken(*a, **k):
         raise RuntimeError("flat_gather: CUDA launch failed with error 1")
 
-    monkeypatch.setattr(api, "decode_flat", broken)
-    monkeypatch.setattr(api, "decode_flat_crc", broken)  # the frame read's K2, with its checksum
+    monkeypatch.setattr(api, "decode_flat_groups", broken)  # K2, with its checksum on a frame read
     with configure(device="cpu"):
         with pytest.raises(RuntimeError, match="launch failed"):
             api.decompress_frame(native.frame_compress(FRAME_DATA))

@@ -92,7 +92,7 @@ def test_wide_raw_stream(route, monkeypatch):
 
 def _spy(monkeypatch):
     calls = []
-    for name in ("decode_flat", "decode_replay", "decode_records", "decode_resolve_batch"):
+    for name in ("decode_flat_groups", "decode_replay", "decode_records", "decode_resolve_batch"):
         fn = getattr(api, name)
         monkeypatch.setattr(api, name, lambda *a, _f=fn, _n=name, **k: calls.append(_n) or _f(*a, **k))
     return calls
@@ -106,7 +106,7 @@ def test_record_cap_overflow(route, monkeypatch):
     data = bytes(97 + i % 26 for i in range(20000))
     calls = _spy(monkeypatch)
     assert api.decompress(write_varu64(len(data)) + body) == data
-    want = "decode_replay" if route == "records" else "decode_flat"
+    want = "decode_replay" if route == "records" else "decode_flat_groups"
     assert calls == [want]
     assert api.routes == [(1, 32768, "replay" if route == "records" else "flat", 65536,
                            len(body), len(data))]
@@ -125,7 +125,7 @@ def test_a_flagged_group_falls_through_whole(route, monkeypatch):
     group = (2, 16384, "flat" if route == "resolve" else "records",
              api._width_bucket(len(bodies[1])), sum(map(len, bodies)), sum(declens))
     if route == "resolve":
-        assert calls == ["decode_resolve_batch", "decode_flat"]
+        assert calls == ["decode_resolve_batch", "decode_flat_groups"]
     else:
         assert calls == ["decode_records"]
     assert api.routes == [group]
