@@ -38,7 +38,7 @@ card. Phases:
    op-start bitmaps) and under ``configure(pure_device=True)`` (op
    discovery on the card). The frame, fast, exact, writer, both
    record-scan, replay and both tensor route paths are then timed end
-   to end, and again with ``ops.api.spans`` on for the breakdown of that
+   to end, and again with ``trace.spans`` on for the breakdown of that
    same run;
    every corpus file compressed alone with the fast profile must be no
    larger than the host codec's stream; two corrupted frame streams must
@@ -988,7 +988,7 @@ def trace_flat_route(fn, out_dir: str):
     on_dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     host_ops = [e for e in events if e.get("cat") in ("cpu_op", "user_annotation")]
     names = [e["name"] for e in on_dev if e.get("cat") == "kernel"]
-    labelled = {}  # the API's spans, which ops.api labels in a trace
+    labelled = {}  # the port's spans, which its recorder labels in a trace
     for e in events:
         if e.get("cat") == "user_annotation":
             labelled[e["name"]] = labelled.get(e["name"], 0.0) + e["dur"]
@@ -1267,7 +1267,7 @@ def main() -> int:
         print("chip_smoke: snappy_tpu_torch/ is not beside this script", file=sys.stderr)
         return 1
     import snappy_tpu_torch
-    from snappy_tpu_torch import native, read, write
+    from snappy_tpu_torch import native, read, trace, write
     from snappy_tpu_torch.format.varint import read_varu64, write_varu64
     from snappy_tpu_torch.ops import (
         _build, api, crc32c, decode_flat, emit, encode, encode_flat, launch_counts as counts,
@@ -2247,7 +2247,7 @@ def main() -> int:
           "the golden .rawsnappy reproduced; the device frame writer equals native.frame_compress")
 
     # The frame and compress paths end to end, warm, with timing off; then
-    # again with ops.api.spans on, each run's breakdown against its own
+    # again with trace.spans on, each run's breakdown against its own
     # end-to-end time.
     def timed(fn):
         torch.cuda.synchronize()
@@ -2263,9 +2263,9 @@ def main() -> int:
         e2e = [timed(fn) for _ in range(3)]
         traced = []
         for _ in range(3):
-            api.spans = {}
+            trace.spans = {}
             t = timed(fn)
-            parts, api.spans = api.spans, None
+            parts, trace.spans = trace.spans, None
             parts["other"] = t - sum(parts.values())
             # device spans: the kernels and the tensor ops (compress plan, tensor decode)
             on_dev = sum(parts.get(k, 0.0)

@@ -122,9 +122,9 @@ def count(counts, key, n=1) -> None:
     """``counts[key] += n`` under one lock for the process.
 
     The kernel wrappers' launch counts (a module's ``globals()``, a dict or
-    a list) and ``ops.api.spans`` are bumped from every shard's thread of a
-    sharded entry at once; a bare ``+=`` reads and writes in two steps and
-    can lose an increment between them."""
+    a list) are bumped from every shard's thread of a sharded entry at
+    once; a bare ``+=`` reads and writes in two steps and can lose an
+    increment between them."""
     with _count_lock:
         counts[key] += n
 

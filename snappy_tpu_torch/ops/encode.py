@@ -42,8 +42,8 @@ from ..format.constants import (
     TAG_COPY2,
     TAG_LITERAL,
 )
+from ..trace import span
 from . import _build
-from .encode_flat import _no_span
 from .parse import _tz_bytes
 
 S = MAX_BLOCK_SIZE
@@ -505,13 +505,10 @@ def compress_blocks(blocks, lengths):
     return out, out_len
 
 
-def compress_blocks_host(blocks: np.ndarray, lengths: np.ndarray, device, *, span=_no_span):
+def compress_blocks_host(blocks: np.ndarray, lengths: np.ndarray, device):
     """Host-facing wrapper: numpy blocks and lengths in, numpy ``(out,
     out_len)`` out, computed on ``device``. A poisoned ``out_len`` (an
-    op-count overflow, which the bound argument rules out) raises.
-
-    ``span(name, device)`` times the copies (``h2d``, ``d2h``) and the
-    launch (``kernels``); the API passes its timer."""
+    op-count overflow, which the bound argument rules out) raises."""
     dev = torch.device(device)
     with span("h2d"):
         blocks_t = torch.from_numpy(np.ascontiguousarray(blocks, np.uint8)).to(dev)

@@ -27,8 +27,9 @@ import numpy as np
 import torch
 
 from ..format.constants import MIN_NON_LITERAL_BLOCK_SIZE
+from ..trace import span
 from .encode import MAX_OPS, S, serialize_ops, u32_plane
-from .encode_flat import _no_span, _prev_two_sorts, _rev_cummin
+from .encode_flat import _prev_two_sorts, _rev_cummin
 from .parse import _tz_bytes
 
 _MAX_COPY = 256  # per-op match cap; the serializer peels 64-byte copy tags
@@ -133,12 +134,10 @@ def compress_blocks_fast(blocks, lengths):
     return serialize_ops(blocks, scat_ops(kind_v), scat_ops(a_v), scat_ops(b_v), nops)
 
 
-def compress_blocks_fast_host(blocks: np.ndarray, lengths: np.ndarray, device, *,
-                              span=_no_span):
+def compress_blocks_fast_host(blocks: np.ndarray, lengths: np.ndarray, device):
     """Host-facing wrapper (the JAX package's ``compress_blocks_fast_host``):
     numpy blocks and lengths in, numpy ``(out, out_len)`` out, computed on
-    ``device``. ``span(name, device)`` times the copies (``h2d``, ``d2h``)
-    and the tensor ops (``tensor``); the API passes its timer."""
+    ``device``."""
     dev = torch.device(device)
     with span("h2d"):
         blocks_t = torch.from_numpy(np.ascontiguousarray(blocks, np.uint8)).to(dev)

@@ -25,18 +25,16 @@ Output: valid raw Snappy per block, byte-identical to the JAX package's
 Tensors stay on the blocks' device; nothing moves to the host but the
 final rows. The public calls take the JAX package's arguments: their
 ``interpret`` is accepted and selects nothing, since the tensors' device
-chooses between each kernel and its plain version; the port's ``span`` is
-keyword-only after them.
+chooses between each kernel and its plain version.
 """
 
 from __future__ import annotations
-
-import contextlib
 
 import numpy as np
 import torch
 
 from ..format.constants import MIN_NON_LITERAL_BLOCK_SIZE
+from ..trace import span
 from .emit import BP_WIN_ROWS, GROUP, N_GROUPS, emit_bytes, fused_emit, shift_idx
 from .parse import JW_CAND, LANES, MAX_REC, NSEG, S, SEG, parse_blocks
 
@@ -53,10 +51,6 @@ NBP_PAD = -(-NBP // LANES) * LANES
 N_GROUPS_REAL = 75  # groups below OUT_W; the rest are padding
 
 I32 = torch.int32
-
-
-def _no_span(name: str, dev=None):
-    return contextlib.nullcontext()
 
 
 # --- prepass --------------------------------------------------------------
@@ -456,8 +450,7 @@ def _fused_plan(blocks, lengths, rec0, rec1, cnt):
             dlt.view(bsz, NBP_PAD // LANES, LANES), src, ovf_bp)
 
 
-def records_to_bytes_fused(blocks, lengths, rec0, rec1, cnt, interpret: bool | None = None, *,
-                           span=_no_span):
+def records_to_bytes_fused(blocks, lengths, rec0, rec1, cnt, interpret: bool | None = None):
     """Fused fast emission, plan -> bytes in one launch (K5).
 
     Bit-exact with :func:`records_to_bytes`. Returns ``(out (B, OUT_W)
@@ -487,7 +480,7 @@ def records_to_bytes_fast(blocks, lengths, rec0, rec1, cnt, interpret: bool | No
     return out[:, :OUT_W], out_len, ovf
 
 
-def _parse(blocks, lengths, span):
+def _parse(blocks, lengths):
     n = lengths.to(I32)
     with span("prepass", blocks.device):
         jw, _ = prepass(blocks, n)
@@ -500,27 +493,25 @@ def _compress_blocks_flat_split(blocks, lengths):
     """The split pipeline (K4, then K6's two launches); the JAX package
     keeps it for A/B measurement. Same contract as
     :func:`compress_blocks_flat_fast`."""
-    n, rec0, rec1, cnt = _parse(blocks, lengths, _no_span)
+    n, rec0, rec1, cnt = _parse(blocks, lengths)
     out, out_len, ovf_bp = records_to_bytes_fast(blocks, n, rec0, rec1, cnt)
     return out, out_len, torch.maximum(_overflow(cnt), ovf_bp)
 
 
-def compress_blocks_flat_fast(blocks, lengths, interpret: bool | None = None, *, span=_no_span):
+def compress_blocks_flat_fast(blocks, lengths, interpret: bool | None = None):
     """Fast flat compress of a ``(B, 65536)`` uint8 block batch on its
     device: prepass, K4, the plan and K5. Same contract as
     :func:`compress_blocks_flat`.
 
-    ``span(name, device)`` is a context manager around each stage
-    (``prepass``, ``kernels``, ``plan``); the API passes its timer. The
-    overflow flag is unreachable: copies are >= 4 bytes apart, so a
+    The overflow flag is unreachable: copies are >= 4 bytes apart, so a
     512-byte segment holds at most 128 records (< MAX_REC = 144), and the
     breakpoint window is sized to the wire format's worst case."""
-    n, rec0, rec1, cnt = _parse(blocks, lengths, span)
-    out, out_len, ovf_bp = records_to_bytes_fused(blocks, n, rec0, rec1, cnt, span=span)
+    n, rec0, rec1, cnt = _parse(blocks, lengths)
+    out, out_len, ovf_bp = records_to_bytes_fused(blocks, n, rec0, rec1, cnt)
     return out, out_len, torch.maximum(_overflow(cnt), ovf_bp)
 
 
-def compress_blocks_flat_host(blocks, lengths, device, *, span=_no_span):
+def compress_blocks_flat_host(blocks, lengths, device):
     """Host-facing wrapper: numpy ``(B, 65536)`` uint8 blocks and ``(B,)``
     lengths in, numpy ``(out (B, OUT_W) uint8, out_len (B,) int32)`` out,
     computed on ``device``.
@@ -533,7 +524,7 @@ def compress_blocks_flat_host(blocks, lengths, device, *, span=_no_span):
     with span("h2d"):
         blocks_t = torch.from_numpy(np.ascontiguousarray(blocks, np.uint8)).to(dev)
         lens_t = torch.from_numpy(np.asarray(lengths, np.int32)).to(dev)
-    out, out_len, ovf = compress_blocks_flat_fast(blocks_t, lens_t, span=span)
+    out, out_len, ovf = compress_blocks_flat_fast(blocks_t, lens_t)
     bad = ovf != 0
     if bool(bad.any()):
         from .encode_fast import compress_blocks_fast

@@ -15,10 +15,10 @@ import numpy as np
 import torch
 
 from ..format.constants import CHUNK_TYPE_COMPRESSED, CHUNK_TYPE_UNCOMPRESSED
+from ..trace import span
 from . import encode
 from .crc32c import crc32c_masked_blocks
 from .encode import OUT_W
-from .encode_flat import _no_span
 
 #: Row width of an emitted frame chunk: 8-byte header + worst-case
 #: payload (3-byte varint + OUT_W), 16-aligned.
@@ -40,7 +40,7 @@ def _varint_u17(n):
     return torch.stack([b0, b1, b2], 1), vlen
 
 
-def encode_frame_chunks(chunks, lengths, fast: bool = False, *, span=_no_span):
+def encode_frame_chunks(chunks, lengths, fast: bool = False):
     """Frame-encode a batch of uncompressed chunks into wire bytes.
 
     ``chunks``: ``(B, W)`` uint8 zero-padded, ``W % 128 == 0`` and ``W <=
@@ -49,8 +49,7 @@ def encode_frame_chunks(chunks, lengths, fast: bool = False, *, span=_no_span):
     chunk, header included, zero after; byte for byte the JAX package's
     ``encode_frame_chunks``. ``fast=True`` compresses with
     :func:`.encode_fast.compress_blocks_fast` (valid frames, not the
-    reference's bytes; ``W`` must be 65536). ``span(name, device)`` times
-    the kernels (``kernels``) and the framing (``assemble``).
+    reference's bytes; ``W`` must be 65536).
     """
     bsz, w = chunks.shape
     dev = chunks.device
@@ -94,11 +93,10 @@ def encode_frame_chunks(chunks, lengths, fast: bool = False, *, span=_no_span):
     return rows, row_len
 
 
-def encode_frame_host(buf: bytes, device, fast: bool = False, *, span=_no_span) -> list[bytes]:
+def encode_frame_host(buf: bytes, device, fast: bool = False) -> list[bytes]:
     """Frame chunks of ``buf`` (every 64 KiB of it, header included), in
     launches of :data:`CHUNKS_PER_LAUNCH` chunks on ``device``: one
-    ``bytes`` per launch. ``span`` times ``pack``, ``h2d``, the device
-    parts of :func:`encode_frame_chunks`, ``d2h`` and ``join``."""
+    ``bytes`` per launch."""
     from .packing import blocks_of, concat_rows
 
     dev = torch.device(device)
@@ -109,7 +107,7 @@ def encode_frame_host(buf: bytes, device, fast: bool = False, *, span=_no_span) 
         with span("h2d"):
             bt = torch.from_numpy(blocks[start : start + CHUNKS_PER_LAUNCH]).to(dev)
             lt = torch.from_numpy(np.ascontiguousarray(lens[start : start + CHUNKS_PER_LAUNCH])).to(dev)
-        rows, row_len = encode_frame_chunks(bt, lt, fast=fast, span=span)
+        rows, row_len = encode_frame_chunks(bt, lt, fast=fast)
         with span("d2h"):
             rows, row_len = rows.cpu().numpy(), row_len.cpu().numpy()
         with span("join"):

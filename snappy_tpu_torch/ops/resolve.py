@@ -35,9 +35,9 @@ import functools
 
 import torch
 
+from ..trace import span
 from . import _build
 from .decode_flat import decode_flat
-from .encode_flat import _no_span
 
 #: Resolution flag: values ``>= FLAG`` are final absolute source indices
 #: (biased by ``FLAG``). Source rows of the route are at most 64 KiB, so
@@ -375,7 +375,7 @@ def idx_to_v2_inputs(a_resolved, declens, d_pad: int, s_rows: int):
 
 
 def decode_resolve_batch(srcs, recs, nops, declens, d_pad: int, interpret: bool | None = None,
-                         use_pallas: bool = True, use_fused: bool = True, *, span=_no_span):
+                         use_pallas: bool = True, use_fused: bool = True):
     """Decode a launch group from its op records: resolve, then K2.
 
     ``srcs``: ``(B, S)`` uint8 zero-padded bodies (``S % 128 == 0``, at most
@@ -391,9 +391,7 @@ def decode_resolve_batch(srcs, recs, nops, declens, d_pad: int, interpret: bool 
     device chooses between each kernel and its plain version. Returns
     ``(out (B, d_pad) uint8, fallback (B,) int32)``: a row with
     ``fallback`` set has a tile that fits no gather window or a chain left
-    unresolved, and its bytes are not valid. ``span(name, dev)``
-    (``ops.api._span``) times the torch ops as ``plan`` and the kernels as
-    ``kernels``.
+    unresolved, and its bytes are not valid.
     """
     if d_pad % 16384:
         raise ValueError(f"d_pad {d_pad} is not whole 16 KiB groups")

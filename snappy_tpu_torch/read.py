@@ -20,6 +20,7 @@ from __future__ import annotations
 import io
 
 from . import error as err
+from . import trace
 from .engine import get_engine
 from .format.varint import read_varu64
 from .format.constants import (
@@ -151,9 +152,7 @@ class FrameDecoder(io.RawIOBase):
                 and not self._read_stream_ident
                 and not self._dst
             ):
-                from .ops import api
-
-                return api._as_call("read.FrameDecoder", self._read_rest)
+                return trace.call("read.FrameDecoder", self._read_rest)
             out = bytearray()
             while True:
                 chunk = self.read(io.DEFAULT_BUFFER_SIZE)
@@ -177,11 +176,9 @@ class FrameDecoder(io.RawIOBase):
         On the native engine this decodes a bounded *segment* of wire
         bytes per call, chunk-parallel across host cores, while keeping
         the sequential reader's exact error order (see ``_fill_segment``).
-        Each fill is one call of ``ops.api``'s recorder.
+        Each fill is one call of the recorder (:mod:`.trace`).
         """
-        from .ops import api
-
-        return api._as_call("read.FrameDecoder", self._fill_chunks)
+        return trace.call("read.FrameDecoder", self._fill_chunks)
 
     def _fill_chunks(self) -> bool:
         while True:

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import io
 
+from . import trace
 from .engine import get_engine
 from .error import IntoInnerError
 from .format.constants import MAX_BLOCK_SIZE, STREAM_IDENTIFIER
@@ -75,10 +76,8 @@ class FrameEncoder(io.RawIOBase):
             self._w.flush()
 
     def _write_chunks(self, buf: bytes) -> int:
-        """Frame ``buf`` and write it: one call of ``ops.api``'s recorder."""
-        from .ops import api
-
-        return api._as_call("write.FrameEncoder", self._frame_chunks, buf)
+        """Frame ``buf`` and write it: one call of the recorder (:mod:`.trace`)."""
+        return trace.call("write.FrameEncoder", self._frame_chunks, buf)
 
     def _frame_chunks(self, buf: bytes) -> int:
         if not self._wrote_stream_ident:
@@ -109,7 +108,7 @@ class FrameEncoder(io.RawIOBase):
 
         dev = api.resolve_device()
         fast = self._engine.name == "device-fast"
-        for part in encode_frame_host(buf, dev, fast=fast, span=api._span):
+        for part in encode_frame_host(buf, dev, fast=fast):
             self._w.write(part)
         return len(buf)
 

@@ -17,7 +17,7 @@ from snappy_tpu import config as jconfig
 from snappy_tpu.format import reference as jref
 from snappy_tpu.format.varint import read_varu64, write_varu64
 from snappy_tpu.ops import api as japi
-from snappy_tpu_torch import native
+from snappy_tpu_torch import native, trace
 from snappy_tpu_torch.config import Config, config_from_reference, configure
 from snappy_tpu_torch.ops import api
 from torch_vectors import fallback_row, hold_jax_native, share_cores_with_workers
@@ -198,12 +198,12 @@ def test_debug_mode_cross_checks_against_the_oracle():
 def test_spans_time_the_path_without_changing_it(monkeypatch):
     data = load_corpus("fireworks.jpeg")[:100000] + load_corpus("html")[:70000]
     stream = frame(data)
-    monkeypatch.setattr(api, "spans", {})
+    monkeypatch.setattr(trace, "spans", {})
     assert port_frame(stream) == data
-    parts = api.spans
+    parts = trace.spans
     assert set(parts) == {
         "walk", "pack", "flatten", "h2d", "kernels", "d2h", "unpack", "stored_crc", "join"
     }
     assert all(t >= 0 for t in parts.values())
-    monkeypatch.setattr(api, "spans", None)
+    monkeypatch.setattr(trace, "spans", None)
     assert port_frame(stream) == data

@@ -20,7 +20,7 @@ import snappy_tpu
 from conftest import CORPUS_FILES, load_corpus
 from snappy_tpu.ops import api as japi
 from snappy_tpu.ops import encode_flat as jef
-from snappy_tpu_torch import native
+from snappy_tpu_torch import native, trace
 from snappy_tpu_torch.config import Config, config_from_reference, configure
 from snappy_tpu_torch.format.varint import write_varu64
 from snappy_tpu_torch.ops import api, encode_flat as ef, packing
@@ -104,8 +104,8 @@ def test_an_overflow_flag_raises(monkeypatch):
     bytes of the fast parallel encoder (``ops/encode_fast.py``)."""
     real = ef.compress_blocks_flat_fast
 
-    def flagged(blocks, lengths, *, span):
-        out, out_len, ovf = real(blocks, lengths, span=span)
+    def flagged(blocks, lengths):
+        out, out_len, ovf = real(blocks, lengths)
         return out, out_len, torch.ones_like(ovf)
 
     monkeypatch.setattr(ef, "compress_blocks_flat_fast", flagged)
@@ -124,12 +124,12 @@ def test_blocks_per_launch_batches_and_spans(monkeypatch):
     real = ef.compress_blocks_flat_host
     monkeypatch.setattr(api, "compress_blocks_flat_host",
                         lambda b, *a, **k: calls.append(b.shape) or real(b, *a, **k))
-    monkeypatch.setattr(api, "spans", {})
+    monkeypatch.setattr(trace, "spans", {})
     with configure(blocks_per_launch=3):
         got = api.compress(DATA, profile="fast", device="cpu")
     assert calls == [(4, 65536), (1, 65536)]  # 3 blocks padded to 4, then 1
-    assert set(api.spans) == {"pack", "h2d", "prepass", "kernels", "plan", "d2h", "join"}
-    monkeypatch.setattr(api, "spans", None)
+    assert set(trace.spans) == {"pack", "h2d", "prepass", "kernels", "plan", "d2h", "join"}
+    monkeypatch.setattr(trace, "spans", None)
     assert got == api.compress(DATA, profile="fast", device="cpu")
 
 

@@ -18,9 +18,9 @@ import jax.numpy as jnp
 from conftest import load_corpus
 from snappy_tpu.ops import encode_fast as jfast
 from snappy_tpu.ops import frame as jframe
-from snappy_tpu_torch import native
+from snappy_tpu_torch import native, trace
 from snappy_tpu_torch.format.varint import write_varu64
-from snappy_tpu_torch.ops import api, encode_fast as fast, encode_flat as ef, frame, packing
+from snappy_tpu_torch.ops import encode_fast as fast, encode_flat as ef, frame, packing
 from torch_vectors import hold_jax_native, share_cores_with_workers
 
 share_cores_with_workers()
@@ -77,10 +77,10 @@ def test_encode_frame_host_launches_in_groups(monkeypatch):
     frames, and the spans cover every part."""
     data = (b"0123456789abcdef" * 4096) * 3 + b"tail"
     monkeypatch.setattr(frame, "CHUNKS_PER_LAUNCH", 2)
-    monkeypatch.setattr(api, "spans", {})
-    parts = frame.encode_frame_host(data, "cpu", span=api._span)
+    monkeypatch.setattr(trace, "spans", {})
+    parts = frame.encode_frame_host(data, "cpu")
     assert len(parts) == 2
-    assert set(api.spans) == {"pack", "h2d", "kernels", "assemble", "d2h", "join"}
+    assert set(trace.spans) == {"pack", "h2d", "kernels", "assemble", "d2h", "join"}
     assert b"\xff\x06\x00\x00sNaPpY" + b"".join(parts) == native.frame_compress(data)
 
 
@@ -93,8 +93,8 @@ def test_an_overflow_flag_takes_the_fast_encoders_bytes(monkeypatch):
     want_fast = fast.compress_blocks_fast(torch.from_numpy(blocks), torch.from_numpy(lens))
     real = ef.compress_blocks_flat_fast
 
-    def flagged(blocks, lengths, *, span):
-        out, out_len, ovf = real(blocks, lengths, span=span)
+    def flagged(blocks, lengths):
+        out, out_len, ovf = real(blocks, lengths)
         return out, out_len, torch.tensor([0, 1, 0], dtype=ovf.dtype)
 
     monkeypatch.setattr(ef, "compress_blocks_flat_fast", flagged)

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from conftest import load_corpus
-from snappy_tpu_torch import native
+from snappy_tpu_torch import native, trace
 from snappy_tpu_torch.format import reference as ref
 from snappy_tpu_torch.format.varint import read_varu64, write_varu64
 from snappy_tpu_torch.ops import (
@@ -1200,9 +1200,10 @@ def test_host_against_card_tool_on_the_card(dev, name, tmp_path, monkeypatch, ca
 
 @pytest.mark.parametrize("views", ["records", "spans", "both"])
 def test_a_traced_call_waits_only_in_its_resolve(dev, views, monkeypatch):
-    """With ``ops.api``'s recorder on, no part of a call synchronises: the
-    only waits are the root's resolve of its device parts' events, after the
-    call's own copy back, and every device part gets its seconds. The zeros
+    """With the recorder (``snappy_tpu_torch.trace``) on, no part of a call
+    synchronises: the only waits are the root's resolve of its device parts'
+    events, after the call's own copy back, and every device part gets its
+    seconds. The zeros
     make chunks of narrower bodies: three launch groups, which K2 decodes
     and checks in one launch, one device part."""
     data = ((load_corpus("alice29.txt") + load_corpus("fireworks.jpeg")) * 2 + bytes(100000)
@@ -1210,7 +1211,7 @@ def test_a_traced_call_waits_only_in_its_resolve(dev, views, monkeypatch):
     stream = native.frame_compress(data)
     assert api.decompress_frame(stream) == data
     waits, resolving = [], [False]
-    real_resolve, real_wait = api._resolve, torch.cuda.Event.synchronize
+    real_resolve, real_wait = trace._resolve, torch.cuda.Event.synchronize
 
     def resolve(pending):
         resolving[0] = True
@@ -1223,19 +1224,19 @@ def test_a_traced_call_waits_only_in_its_resolve(dev, views, monkeypatch):
         waits.append(("event", resolving[0]))
         return real_wait(self)
 
-    monkeypatch.setattr(api, "_resolve", resolve)
+    monkeypatch.setattr(trace, "_resolve", resolve)
     monkeypatch.setattr(torch.cuda.Event, "synchronize", event_wait)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: waits.append(("card", resolving[0])))
-    monkeypatch.setattr(api, "records", None if views == "spans" else [])
-    monkeypatch.setattr(api, "spans", None if views == "records" else {})
+    monkeypatch.setattr(trace, "records", None if views == "spans" else [])
+    monkeypatch.setattr(trace, "spans", None if views == "records" else {})
     assert api.decompress_frame(stream) == data
     assert waits and set(waits) == {("event", True)}
-    if api.records is not None:
-        device = [r for r in api.records if r["name"] == "kernels"]
+    if trace.records is not None:
+        device = [r for r in trace.records if r["name"] == "kernels"]
         assert len(waits) == len(device) == 1
         assert all(0 < r["device_s"] < 1 for r in device)
-    if api.spans is not None:
-        assert api.spans["kernels"] > 0 and "decompress_frame" not in api.spans
+    if trace.spans is not None:
+        assert trace.spans["kernels"] > 0 and "decompress_frame" not in trace.spans
 
 
 def test_traced_parts_fit_the_call_and_its_trace(dev, tmp_path):
@@ -1251,15 +1252,15 @@ def test_traced_parts_fit_the_call_and_its_trace(dev, tmp_path):
     data = (load_corpus("html_x_4") + load_corpus("fireworks.jpeg")) * 8
     stream = native.frame_compress(data)
     assert api.decompress_frame(stream) == data
-    api.records = []
+    trace.records = []
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(3):
                 assert api.decompress_frame(stream) == data
             torch.cuda.synchronize()
-        recs = api.records
+        recs = trace.records
     finally:
-        api.records = None
+        trace.records = None
     path = tmp_path / "trace.json"
     prof.export_chrome_trace(str(path))
     doc = json.loads(path.read_text())

@@ -58,6 +58,7 @@ PORT_MODULES = [
     "snappy_tpu_torch.tools.flatten_scale",
     "snappy_tpu_torch.tools.fuzz_campaign",
     "snappy_tpu_torch.tools.scaling_measure",
+    "snappy_tpu_torch.trace",
     "snappy_tpu_torch.utils",
     "snappy_tpu_torch.utils.cpp_oracle",
     "snappy_tpu_torch.utils.profiling",
@@ -83,6 +84,46 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     loaded = json.loads(out.strip().splitlines()[-1])
     assert set(PORT_MODULES) <= set(loaded)
     assert [m for m in loaded if _foreign(m)] == []
+
+
+def _imported(path: str, module: str) -> set[str]:
+    """Every module that the file at ``path`` (the module ``module``) imports,
+    at any depth of its code, relative imports resolved: for ``from X import
+    n`` both ``X`` and ``X.n``."""
+    import ast
+
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    package = module if path.endswith("__init__.py") else module.rpartition(".")[0]
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = package.rsplit(".", node.level - 1)[0] if node.level else ""
+            base = ".".join(p for p in (base, node.module) if p)
+            out.add(base)
+            out.update(f"{base}.{a.name}" for a in node.names)
+    return out
+
+
+def test_the_recorder_sits_below_every_stage():
+    """``trace.py`` imports nothing of the port, so that every stage can
+    import it; and no stage below the API (``ops/`` but ``api.py`` and the
+    package's own ``__init__.py``, which exports it) and no module of
+    ``parallel/`` imports ``ops.api``."""
+    root = os.path.join(REPO, "snappy_tpu_torch")
+    mine = _imported(os.path.join(root, "trace.py"), "snappy_tpu_torch.trace")
+    assert mine and not any(m.split(".")[0] == "snappy_tpu_torch" for m in mine)
+    below = []
+    for sub in ("ops", "parallel"):
+        for name in sorted(os.listdir(os.path.join(root, sub))):
+            if name.endswith(".py") and not (sub == "ops" and name in ("api.py", "__init__.py")):
+                module = f"snappy_tpu_torch.{sub}.{name[:-3]}".removesuffix(".__init__")
+                below.append((module, _imported(os.path.join(root, sub, name), module)))
+    assert len(below) > 15
+    assert any("snappy_tpu_torch.trace" in got for _, got in below)
+    assert [m for m, got in below if "snappy_tpu_torch.ops.api" in got] == []
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "flat_gather_probe.py", "encode_records_probe.py",

@@ -18,6 +18,7 @@ from benchmark import row_groups, traffic
 from benchmark.reference import pages as ref_pages
 from benchmark.reference import snappy as ref
 from snappy_tpu.ops import api as japi
+from snappy_tpu_torch import trace
 from snappy_tpu_torch.config import configure
 from snappy_tpu_torch.ops import api
 from torch_vectors import hold_jax_native, share_cores_with_workers
@@ -151,10 +152,10 @@ def test_host_decode_counts_its_bytes(corpus, monkeypatch):
     """The ``host_decode`` part's bytes are its group's declared outputs;
     the spans view names it."""
     item = _row_group(corpus, SEEDS[1])
-    monkeypatch.setattr(api, "records", [])
-    monkeypatch.setattr(api, "spans", {})
+    monkeypatch.setattr(trace, "records", [])
+    monkeypatch.setattr(trace, "spans", {})
     outs, errs, rts = _routes(item.bodies, item.declens, max_dpad=16384)
     assert not errs.any() and b"".join(outs) == row_groups.expected(corpus, item)
-    parts = [r for r in api.records if r["name"] == "host_decode"]
+    parts = [r for r in trace.records if r["name"] == "host_decode"]
     assert [p["bytes"] for p in parts] == [r[5] for r in rts]
-    assert sum(p["bytes"] for p in parts) == item.raw_bytes and api.spans["host_decode"] > 0
+    assert sum(p["bytes"] for p in parts) == item.raw_bytes and trace.spans["host_decode"] > 0

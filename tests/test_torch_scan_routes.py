@@ -12,7 +12,7 @@ import pytest
 
 from conftest import load_corpus
 from snappy_tpu.ops import api as japi
-from snappy_tpu_torch import native, read
+from snappy_tpu_torch import native, read, trace
 from snappy_tpu_torch.config import configure
 from snappy_tpu_torch.format.varint import write_varu64
 from snappy_tpu_torch.ops import api
@@ -80,14 +80,14 @@ def test_wide_raw_stream(route, monkeypatch):
     """102,400 bytes in one row at ``d_pad`` 131072: past the resolve
     route's 64 KiB, so that route falls through to the flat route; the
     records route replays it (6,934 records, within the 16 Ki cap)."""
-    monkeypatch.setattr(api, "spans", {})
+    monkeypatch.setattr(trace, "spans", {})
     data = load_corpus("html")
     stream = native.compress(data)
     assert api.decompress(stream) == data
     body = len(stream) - len(write_varu64(len(data)))
     assert api.routes == [(1, 1 << 17, "flat" if route == "resolve" else "records",
                            api._width_bucket(body), body, len(data))]
-    assert "scan" in api.spans if route == "records" else "flatten" in api.spans
+    assert "scan" in trace.spans if route == "records" else "flatten" in trace.spans
 
 
 def _spy(monkeypatch):

@@ -5,8 +5,9 @@ outside ``ops/pallas/``, found with ``ast`` as the JAX package's files
 stand: the port's module of the same path has the name; a function's JAX
 positional parameters are the first of the port's, in order, and its JAX
 keyword-only ones are keywords of the port's; a constant has the JAX value.
-The port's own parameters (``span``) come after, keyword-only, so a JAX call
-by position means the same on the port.
+The port's stages take no parameter of their own: each records its parts
+with the recorder (``snappy_tpu_torch.trace``), so a JAX call by position
+or by name means the same on the port.
 
 Then the calls whose meaning differs by position or name, run on the CPU:
 ``decode_resolve_batch``'s sixth argument is ``interpret`` (it selects
@@ -31,7 +32,7 @@ import snappy_tpu
 from snappy_tpu.ops import resolve as jres
 from snappy_tpu.parallel import make_mesh as jax_make_mesh
 from snappy_tpu.parallel.sharded import sharded_encode_frame_chunks as jax_frame_chunks
-from snappy_tpu_torch import config, native
+from snappy_tpu_torch import config, native, trace
 from snappy_tpu_torch.ops import api, crc32c, encode_flat, resolve
 from snappy_tpu_torch.parallel import mesh as pmesh
 from snappy_tpu_torch.parallel import multihost, sharded
@@ -100,8 +101,6 @@ def test_the_port_takes_the_jax_arguments(module, name, jax_sig):
     assert set(kwonly) <= keywords
     assert not varargs or any(p.kind == P.VAR_POSITIONAL for p in params)
     assert not varkw or any(p.kind == P.VAR_KEYWORD for p in params)
-    # The port's span comes after the JAX parameters, by keyword only.
-    assert all(p.kind == P.KEYWORD_ONLY for p in params if p.name == "span")
 
 
 # --- decode_resolve_batch ---------------------------------------------------------
@@ -166,18 +165,30 @@ def test_decode_resolve_batch_without_pallas(resolve_group, monkeypatch):
     assert taken[0] == "resolve"
 
 
-def test_decode_resolve_batch_takes_span_by_keyword_only(resolve_group):
+def _parts_under_a_caller(fn, *args):
+    """The names of the parts ``fn(*args)`` records under an open part of
+    its caller's, every one in that part's call."""
+    trace.records = []
+    try:
+        with trace.span("caller"):
+            fn(*args)
+        recs = trace.records
+    finally:
+        trace.records = None
+    (root,) = [r for r in recs if r["parent"] is None]
+    assert root["name"] == "caller" and {r["call"] for r in recs} == {root["id"]}
+    return {r["name"] for r in recs if r["parent"] == root["id"]}
+
+
+def test_decode_resolve_batch_records_its_parts_under_the_caller(resolve_group):
+    """``decode_resolve_batch`` takes no ``span``: it records its own parts,
+    ``plan`` and ``kernels``, under its caller's open part, and a stray
+    argument past the JAX ones is refused."""
     _, args = resolve_group
-    seen = []
-
-    def span(name, dev=None):
-        seen.append(name)
-        return encode_flat._no_span(name)
-
-    resolve.decode_resolve_batch(*args, 1 << 14, span=span)
-    assert set(seen) == {"plan", "kernels"}
+    assert _parts_under_a_caller(resolve.decode_resolve_batch, *args, 1 << 14) == {
+        "plan", "kernels"}
     with pytest.raises(TypeError):
-        resolve.decode_resolve_batch(*args, 1 << 14, None, True, True, span)
+        resolve.decode_resolve_batch(*args, 1 << 14, None, True, True, object())
 
 
 # --- the flat encoder, the CRC -----------------------------------------------------
@@ -200,7 +211,7 @@ def test_flat_encoder_interpret_selects_nothing(blocks):
         for g, w in zip(got, want):
             assert torch.equal(g, w)
     with pytest.raises(TypeError):
-        encode_flat.compress_blocks_flat_fast(b, n, None, encode_flat._no_span)
+        encode_flat.compress_blocks_flat_fast(b, n, None, object())
 
 
 def test_record_emissions_take_interpret_in_the_jax_place(blocks):
@@ -214,17 +225,13 @@ def test_record_emissions_take_interpret_in_the_jax_place(blocks):
             assert torch.equal(g, w)
 
 
-def test_the_host_wrapper_passes_its_span_through(blocks):
-    """A ``span`` bound by position to ``interpret`` would time nothing."""
+def test_the_host_wrapper_records_its_parts_under_the_caller(blocks):
+    """The host wrapper's parts and those of the stages it calls are
+    recorded under its caller's open part."""
     b, n = blocks
-    seen = []
-
-    def span(name, dev=None):
-        seen.append(name)
-        return encode_flat._no_span(name)
-
-    encode_flat.compress_blocks_flat_host(b.numpy(), n.numpy(), "cpu", span=span)
-    assert {"h2d", "prepass", "kernels", "plan", "d2h"} <= set(seen)
+    parts = _parts_under_a_caller(encode_flat.compress_blocks_flat_host, b.numpy(), n.numpy(),
+                                  "cpu")
+    assert {"h2d", "prepass", "kernels", "plan", "d2h"} <= parts
 
 
 def test_crc_takes_blocks_by_name(blocks):

@@ -1,10 +1,11 @@
-"""``ops.api``'s span recorder on the CPU (the kernels' plain versions):
-one record a part of every call, its call id, parent, clock times, host
-CPU, page faults and bytes; the ``api.spans`` sums as a view of the same
-records, with a host part's wait for the card's parts left out; nothing
-done while both views are off; records from many threads and from a
-sharded entry's shard threads; and the records' clock placed on a
-``torch.profiler`` trace's."""
+"""The port's span recorder (``snappy_tpu_torch.trace``) on the CPU (the
+kernels' plain versions): one record a part of every call, its call id,
+parent, clock times, host CPU, page faults and bytes; the ``trace.spans``
+sums as a view of the same records, with a host part's wait for the card's
+parts left out; nothing done while both views are off; records from many
+threads and from a sharded entry's shard threads, the stages under a
+sharded entry included; ``ops.api``'s names for the two views; and the
+records' clock placed on a ``torch.profiler`` trace's."""
 
 import io
 import json
@@ -18,7 +19,7 @@ import pytest
 import torch
 
 from conftest import load_corpus
-from snappy_tpu_torch import native, read, write
+from snappy_tpu_torch import native, read, trace, write
 from snappy_tpu_torch.config import configure
 from snappy_tpu_torch.format.varint import write_varu64
 from snappy_tpu_torch.ops import api
@@ -37,8 +38,8 @@ MIXED = load_corpus("fireworks.jpeg")[:100000] + load_corpus("alice29.txt")[:900
 
 @pytest.fixture(autouse=True)
 def on_cpu(monkeypatch):
-    monkeypatch.setattr(api, "spans", None)
-    monkeypatch.setattr(api, "records", None)
+    monkeypatch.setattr(trace, "spans", None)
+    monkeypatch.setattr(trace, "records", None)
     with configure(device="cpu"):
         yield
 
@@ -46,13 +47,13 @@ def on_cpu(monkeypatch):
 def recorded(fn, *args, spans=False):
     """``fn(*args)`` with the records on (and the sums too with ``spans``):
     ``(result, records)``."""
-    api.records = []
+    trace.records = []
     if spans:
-        api.spans = {}
+        trace.spans = {}
     try:
-        return fn(*args), api.records
+        return fn(*args), trace.records
     finally:
-        api.records = None
+        trace.records = None
 
 
 def chunk_kinds(stream: bytes) -> set[int]:
@@ -97,7 +98,7 @@ def test_parts_take_the_innermost_open_part_as_parent():
     stream = native.frame_compress(PLAIN)
 
     def nested():
-        with api._span("pack"), api._span("join"):
+        with trace.span("pack"), trace.span("join"):
             return api.decompress_frame(stream)
 
     got, recs = recorded(nested)
@@ -194,9 +195,9 @@ def test_spans_are_the_records_summed_by_name(path):
     }[path]
     try:
         got, recs = recorded(fn, arg, spans=True)
-        sums = api.spans
+        sums = trace.spans
     finally:
-        api.spans = None
+        trace.spans = None
     assert (got == data) if path in ("frame", "raw") else native.decompress(got) == data
     assert set(sums) == set(_summed(recs)) and sums
     for name, s in _summed(recs).items():
@@ -204,13 +205,13 @@ def test_spans_are_the_records_summed_by_name(path):
 
 
 def test_spans_alone_keep_no_records():
-    api.spans = {}
+    trace.spans = {}
     try:
         assert api.decompress_frame(native.frame_compress(PLAIN)) == PLAIN
-        assert {"walk", "flatten", "join"} <= set(api.spans)
+        assert {"walk", "flatten", "join"} <= set(trace.spans)
     finally:
-        api.spans = None
-    assert api.records is None and not api._open
+        trace.spans = None
+    assert trace.records is None and not trace._open
 
 
 def test_off_costs_no_rusage_and_keeps_nothing(monkeypatch):
@@ -222,8 +223,8 @@ def test_off_costs_no_rusage_and_keeps_nothing(monkeypatch):
     stream = native.frame_compress(MIXED)
     assert api.decompress_frame(stream) == MIXED
     assert native.decompress(api.compress(PLAIN)) == PLAIN
-    assert api.records is None and api.spans is None and not api._open
-    assert api._current.get() is None
+    assert trace.records is None and trace.spans is None and not trace._open
+    assert trace._current.get() is None
 
 
 @pytest.mark.parametrize("entry", ["decompress_frame", "reader", "writer", "compress"])
@@ -231,14 +232,14 @@ def test_with_both_views_off_an_entry_opens_no_call(entry, monkeypatch):
     """With no view and no profiler on, a public entry runs its body
     straight through: no root part is opened."""
     roots = []
-    real = api._span
+    real = trace.span
 
     def span(name, *args, root=False, **kwargs):
         if root:
             roots.append(name)
         return real(name, *args, root=root, **kwargs)
 
-    monkeypatch.setattr(api, "_span", span)
+    monkeypatch.setattr(trace, "span", span)
     stream = native.frame_compress(PLAIN)
     if entry == "decompress_frame":
         assert api.decompress_frame(stream) == PLAIN
@@ -252,11 +253,11 @@ def test_with_both_views_off_an_entry_opens_no_call(entry, monkeypatch):
     else:
         assert native.decompress(api.compress(PLAIN)) == PLAIN
     assert roots == []
-    api.records = []
+    trace.records = []
     try:
         assert api.decompress_frame(stream) == PLAIN
     finally:
-        api.records = None
+        trace.records = None
     assert roots == ["decompress_frame", "decompress_streams"]  # the second joins the first
 
 
@@ -300,7 +301,7 @@ def test_a_host_part_leaves_out_the_device_parts_it_overlaps(case):
         host = _rec("h2d", 0, 5 * us)
         want = 0.0
     done = [r for r, *_ in pending] + [host]
-    api._set_waits(done, api._resolve(pending))
+    trace._set_waits(done, trace._resolve(pending))
     assert kern["device_s"] == pytest.approx(500e-6)
     assert host["wait_s"] == pytest.approx(want, abs=1e-12)
     assert all(r["wait_s"] == 0.0 for r, *_ in pending)
@@ -312,15 +313,15 @@ def test_a_host_part_leaves_out_the_device_parts_it_overlaps(case):
 def test_a_failed_call_still_ends():
     stream = bytearray(native.frame_compress(PLAIN))
     stream[20] ^= 0xFF  # the first chunk's checksum
-    api.records = []
+    trace.records = []
     try:
         with pytest.raises(Exception):
             api.decompress_frame(bytes(stream))
-        recs = api.records
+        recs = trace.records
     finally:
-        api.records = None
+        trace.records = None
     assert [r["name"] for r in recs if r["parent"] is None] == ["decompress_frame"]
-    assert not api._open and api._current.get() is None
+    assert not trace._open and trace._current.get() is None
 
 
 def test_many_threads_give_a_call_each_and_lose_no_record():
@@ -337,7 +338,7 @@ def test_many_threads_give_a_call_each_and_lose_no_record():
         results[i] = api.decompress_frame(stream, device="cpu")
 
     interval = sys.getswitchinterval()
-    api.records = []
+    trace.records = []
     try:
         sys.setswitchinterval(1e-5)
         threads = [threading.Thread(target=work, args=(i,)) for i in range(n)]
@@ -346,10 +347,10 @@ def test_many_threads_give_a_call_each_and_lose_no_record():
         for t in threads:
             t.join(timeout=300)
         assert not any(t.is_alive() for t in threads)
-        recs = api.records
+        recs = trace.records
     finally:
         sys.setswitchinterval(interval)
-        api.records = None
+        trace.records = None
     assert results == [MIXED] * n
     calls = {r["call"] for r in recs}
     assert len(calls) == n and len(recs) == n * len(one)
@@ -362,20 +363,25 @@ def test_many_threads_give_a_call_each_and_lose_no_record():
 def test_shard_threads_take_the_entrys_span_as_parent():
     """A sharded entry runs its shards in threads with a copy of the
     caller's context, so each shard's parts have the part that called
-    the entry as parent."""
+    the entry as parent. The shards meet at a barrier before they decode,
+    so that both run at once, each on a thread of its own: the pool hands
+    a queued shard to whichever thread asks first, and without the barrier
+    a first shard that ends before the second is taken can take it too."""
     mesh = make_mesh([torch.device("cpu")] * 2)
     datas = [load_corpus("html")[:40000], load_corpus("alice29.txt")[:30000],
              load_corpus("urls.10K")[:20000], load_corpus("kppkn.gtb")[:50000]]
     bodies = [native.compress(d)[len(write_varu64(len(d))):] for d in datas]
+    both = threading.Barrier(2, timeout=30)
 
     def shard(rows):
+        both.wait()
         got, errs, _ = api.decompress_streams([bodies[i] for i in rows.tolist()],
                                               [len(datas[i]) for i in rows.tolist()])
         assert not errs.any()
         return torch.tensor([len(g) for g in got])
 
     def entry():
-        with api._span("map_shards", root=True):
+        with trace.span("map_shards", root=True):
             return sharded.map_shards(mesh, shard, torch.arange(4))
 
     lens, recs = recorded(entry)
@@ -393,6 +399,52 @@ def test_shard_threads_take_the_entrys_span_as_parent():
     assert not any(r["name"] == "decompress_streams" for r in recs)
 
 
+def test_a_sharded_compress_records_its_stages_under_the_callers_part():
+    """The stages that a sharded entry runs record their own parts: the flat
+    encoder's ``prepass``, ``kernels`` (K4, K5) and ``plan``, once a shard
+    each, every one in the call of the part that called the entry, its
+    chain of parents ending there."""
+    mesh = make_mesh([torch.device("cpu")] * 2)
+    blocks = np.zeros((2, 65536), np.uint8)
+    lens = np.array([12000, 9000], np.int32)
+    blocks[0, :12000] = np.frombuffer(PLAIN[:12000], np.uint8)
+    blocks[1, :9000] = np.frombuffer(MIXED[-9000:], np.uint8)
+
+    def entry():
+        with trace.span("caller", root=True):
+            return sharded.sharded_compress_blocks_flat(mesh, blocks, lens)
+
+    (out, out_len, _), recs = recorded(entry)
+    for i, n in enumerate(lens):
+        stream = write_varu64(int(n)) + out.numpy()[i, : out_len.numpy()[i]].tobytes()
+        assert native.decompress(stream) == blocks[i, :n].tobytes()
+    (root,) = [r for r in recs if r["parent"] is None]
+    assert root["name"] == "caller"
+    names = [r["name"] for r in recs if r is not root]
+    assert (names.count("prepass"), names.count("kernels"), names.count("plan")) == (2, 4, 2)
+    by_id = {r["id"]: r for r in recs}
+    for r in recs:
+        assert r["call"] == root["id"]
+        while r["parent"] is not None:
+            r = by_id[r["parent"]]
+        assert r is root
+
+
+@pytest.mark.parametrize("view", ["spans", "records"])
+def test_the_api_module_sets_and_reads_the_recorders_views(view):
+    """``ops.api.spans`` and ``ops.api.records`` are the recorder's own views,
+    set and read through the API module."""
+    setattr(api, view, {} if view == "spans" else [])
+    try:
+        assert getattr(trace, view) is getattr(api, view)
+        assert api.decompress_frame(native.frame_compress(PLAIN)) == PLAIN
+        got = getattr(api, view)
+        assert "walk" in (got if view == "spans" else {r["name"] for r in got})
+    finally:
+        setattr(api, view, None)
+    assert getattr(trace, view) is None
+
+
 def test_records_land_on_the_profilers_clock(tmp_path):
     """Each record's start, placed on the trace by its call's anchor and the
     trace's ``baseTimeNanoseconds``, lies within 1 ms of its own range's."""
@@ -400,14 +452,14 @@ def test_records_land_on_the_profilers_clock(tmp_path):
 
     stream = native.frame_compress(MIXED)
     api.decompress_frame(stream)  # warm
-    api.records = []
+    trace.records = []
     try:
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             for _ in range(2):
                 api.decompress_frame(stream)
-        recs = api.records
+        recs = trace.records
     finally:
-        api.records = None
+        trace.records = None
     path = tmp_path / "trace.json"
     prof.export_chrome_trace(str(path))
     doc = json.loads(path.read_text())

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 import snappy_tpu_torch
-from snappy_tpu_torch import native
+from snappy_tpu_torch import native, trace
 from snappy_tpu_torch.format.varint import write_varu64
 from snappy_tpu_torch.ops import api
 from snappy_tpu_torch.utils import cpp_oracle as cpp
@@ -29,7 +29,8 @@ def corpus(name: str) -> bytes:
 
 
 # tests/test_utils.py's ``timed`` case; the port keeps no ``Timer``: its
-# spans are ``ops.api``'s recorder (tests/test_torch_trace.py).
+# spans are the port's recorder, ``snappy_tpu_torch.trace``
+# (tests/test_torch_trace.py).
 
 
 def test_timed_reports_throughput():
@@ -68,11 +69,11 @@ def test_device_trace_writes_a_chrome_trace_naming_a_torch_op(tmp_path):
 
 
 def test_device_trace_labels_the_api_spans(tmp_path):
-    """Under a trace the API's spans are labelled ranges, so the host's gaps
-    between launches carry the names ``api.spans`` times."""
+    """Under a trace the recorder's spans are labelled ranges, so the host's
+    gaps between launches carry the names ``trace.spans`` times."""
     data = corpus("html") * 2
     stream = native.frame_compress(data)
-    assert api.spans is None
+    assert trace.spans is None
     with device_trace(str(tmp_path)):
         assert snappy_tpu_torch.decompress_frame(stream, device="cpu") == data
     (path,) = glob.glob(str(tmp_path / "trace.*.json"))
