@@ -148,9 +148,15 @@ bound counts K2's bytes. K2 over several launch groups in one launch
 (``decode_flat_groups``, ``flat_groups_row``) runs the 16 MiB frame
 read's five groups (each corpus file framed whole, as the frame cell's
 calls): each group's bytes and CRCs against the plain versions and the
-five one-group launches, one launch counting five groups and no K1, and
-its time device-only beside the five launches', with and without the
-checksum, which must not beat its bytes' bound. K5's ``ms`` is device-only too (its wrapper's calls in a graph), beside ``call_ms``, and
+five one-group launches, one launch counting five groups, their units
+and a grid of at most that many CTAs, and no K1, and its time device-only
+beside the five launches', with and without the checksum, which must not
+beat its bytes' bound. K2 alone also runs the page cell's widest launch
+group (``page_group_row``: 145 raw pages of 983,040 bytes at width and
+``d_pad`` 1 MiB), against its plain version and its bytes' bound, one
+launch walking its 9,280 units; K2's rows on the 455-row group carry the
+units and CTAs their launch walked (``walk``). K5's ``ms`` is device-only
+too (its wrapper's calls in a graph), beside ``call_ms``, and
 its walk followed in numpy (``emit.fused_emit_walk``) must give the plain
 version's indices on the compress group's first 16 rows.
 
@@ -334,17 +340,20 @@ def whole_files_frame(nbytes: int = 16 << 20) -> tuple[bytes, bytes]:
     return b"".join(parts), b"".join(native.frame_compress(p) for p in parts)
 
 
-def flat_groups_row(dev, ptxas: list[str]) -> dict:
-    """K2 with the checksum over the 16 MiB frame read's five launch groups
-    (:func:`whole_files_frame`, the frame cell's shape; each group under one
-    wave) in one launch (``decode_flat_groups``), against the five one-group
-    launches of ``decode_flat_crc``: each group's bytes and CRCs against the
-    plain versions and the five launches'; the launches, the checksum
-    launches and the groups one call counts; ``ms`` and ``separate_ms``
-    device-only (50 calls in a CUDA graph), with the output's GB/s over
-    each, and the same for K2 alone; the ``flat_gather`` lines of
-    ``ptxas``."""
-    from snappy_tpu_torch.ops import api, crc32c, decode_flat, packing, reset_launch_counts
+def k2_bound_bytes(lens, declens, d_pad: int) -> int:
+    """K2's bound bytes (the kernel table's) of a launch group: two index
+    bytes and a source byte a live output byte, tile data, declens, output."""
+    rows = len(declens)
+    return (2 * sum(declens) + int(np.sum(lens)) + 8 * sum(-(-n // 1024) for n in declens)
+            + 4 * rows + rows * d_pad)
+
+
+def frame_read_groups(dev, layout: int = 1):
+    """The 16 MiB frame read's five launch groups (:func:`whole_files_frame`,
+    the frame cell's shape; each under one wave of a CTA a unit) as
+    ``decode_flat_groups`` takes them, flattened in ``layout``; with each
+    group's ``[rows, width, d_pad]``, K2's bound bytes and the output bytes."""
+    from snappy_tpu_torch.ops import api, packing
 
     _, stream = whole_files_frame()
     chunks = compressed_chunks(stream)
@@ -355,21 +364,81 @@ def flat_groups_row(dev, ptxas: list[str]) -> dict:
         width = api._width_bucket(len(bodies[g[0]]))
         srcs, lens = packing.batch_streams([bodies[i] for i in g], width)
         d_pad = packing.pad_to_bucket(max(gd), 1024)
-        idx, tmeta, fallb, herrs, _ = native_flatten(srcs, lens, gd, d_pad)
+        idx, tmeta, fallb, herrs, _ = native_flatten(srcs, lens, gd, d_pad, layout)
         check(not fallb.any() and not herrs.any(), "the flatten rejected a row")
         groups.append((*(torch.from_numpy(x).to(dev) for x in (
-            srcs, idx.view(np.int16), tmeta, np.asarray(gd, np.int32))), d_pad, 1))
+            srcs, idx.view(np.int16), tmeta, np.asarray(gd, np.int32))), d_pad, layout))
         shape.append([len(g), width, d_pad])
-        # K2's bound (the kernel table's): index and source bytes, tile data, output
-        nbytes += (2 * sum(gd) + int(lens.sum()) + 8 * sum(-(-n // 1024) for n in gd)
-                   + 4 * len(g) + len(g) * d_pad)
+        nbytes += k2_bound_bytes(lens, gd, d_pad)
     check(len(groups) == 5, f"the 16 MiB read's groups: {shape}")
-    out_bytes = sum(chunks[i][1] for i in range(len(chunks)))
+    return groups, shape, nbytes, sum(c[1] for c in chunks)
+
+
+#: The page cell's widest launch group: the columns whose 983,040-byte pages
+#: (15 whole 64 KiB chunks) compress past half a MiB, so to the 1 MiB width.
+PAGE_COLUMNS = ["fireworks.jpeg", "paper-100k.pdf", "alice29.txt", "asyoulik.txt",
+                "lcet10.txt", "plrabn12.txt"]
+
+
+def page_group(dev, rows: int = 145):
+    """The page cell's 145-row launch group as K2 gets it (layout 1, width and
+    ``d_pad`` 1,048,576, 60 of each row's 64 units live): ``rows`` raw Snappy
+    pages (the host codec's) of 15 whole 64 KiB chunks of a corpus file, its
+    chunks in turn, cycled, the columns of :data:`PAGE_COLUMNS` in turn;
+    with K2's bound bytes and the output bytes."""
+    from snappy_tpu_torch import native
+    from snappy_tpu_torch.format.varint import read_varu64
+    from snappy_tpu_torch.ops import api, packing
+
+    cols = []
+    for name in PAGE_COLUMNS:
+        with open(os.path.join(HERE, "benchmark", "corpus", name), "rb") as f:
+            blob = f.read()
+        cols.append([blob[k:k + 65536] for k in range(0, len(blob) - 65535, 65536)])
+    bodies, declens, at = [], [], [0] * len(cols)
+    for r in range(rows):
+        c = r % len(cols)
+        page = b"".join(cols[c][(at[c] + k) % len(cols[c])] for k in range(15))
+        at[c] += 15
+        z = native.compress(page)
+        bodies.append(z[read_varu64(z)[1]:])
+        declens.append(len(page))
+    width = 1 << 20
+    check(all(api._width_bucket(len(b)) == width for b in bodies), "a page left the 1 MiB width")
+    srcs, lens = packing.batch_streams(bodies, width)
+    idx, tmeta, fallb, herrs, _ = native_flatten(srcs, lens, declens, width)
+    check(not fallb.any() and not herrs.any(), "the flatten rejected a page")
+    group = (*(torch.from_numpy(x).to(dev) for x in (
+        srcs, idx.view(np.int16), tmeta, np.asarray(declens, np.int32))), width, 1)
+    return group, k2_bound_bytes(lens, declens, width), sum(declens)
+
+
+def walk_counts() -> dict:
+    """K2's counts of what its launches walked since the last reset."""
+    from snappy_tpu_torch.ops import decode_flat
+
+    return {"launches": decode_flat.launches, "launched_groups": decode_flat.launched_groups,
+            "launched_units": decode_flat.launched_units,
+            "launched_ctas": decode_flat.launched_ctas}
+
+
+def flat_groups_row(dev, ptxas: list[str]) -> dict:
+    """K2 with the checksum over the 16 MiB frame read's five launch groups
+    (:func:`frame_read_groups`) in one launch (``decode_flat_groups``),
+    against the five one-group launches of ``decode_flat_crc``: each group's
+    bytes and CRCs against the plain versions and the five launches'; the
+    launches, the checksum launches, the groups, units and CTAs one call
+    counts; ``ms`` and ``separate_ms`` device-only (50 calls in a CUDA
+    graph), with the output's GB/s over each, and the same for K2 alone;
+    the ``flat_gather`` lines of ``ptxas``."""
+    from snappy_tpu_torch.ops import crc32c, decode_flat, reset_launch_counts
+
+    groups, shape, nbytes, out_bytes = frame_read_groups(dev)
     reset_launch_counts()
     got = decode_flat.decode_flat_groups(groups, True)
     torch.cuda.synchronize()
-    counts = {"launches": decode_flat.launches, "crc_launches": decode_flat.crc_launches,
-              "launched_groups": decode_flat.launched_groups, "crc32c": crc32c.launches}
+    counts = {**walk_counts(), "crc_launches": decode_flat.crc_launches,
+              "crc32c": crc32c.launches}
     sep = [decode_flat.decode_flat_crc(*g) for g in groups]
     equal, err = True, 0
     for (out, crc), (s_out, s_crc), g in zip(got, sep, groups):
@@ -396,6 +465,33 @@ def flat_groups_row(dev, ptxas: list[str]) -> dict:
     }
     for k in ("ms", "separate_ms", "k2_ms", "k2_separate_ms"):
         row[k.replace("ms", "GBps")] = out_bytes / (row[k] * 1e6)
+    return row
+
+
+def page_group_row(dev) -> dict:
+    """K2 (no checksum, layout 1) on the page cell's 145-row group
+    (:func:`page_group`): its bytes against the plain version, the units and
+    CTAs one launch walks, ``ms`` device-only (10 calls in a CUDA graph) and
+    the output's GB/s over it, against the bytes' bound."""
+    from snappy_tpu_torch.ops import decode_flat, reset_launch_counts
+
+    g, nbytes, out_bytes = page_group(dev)
+    reset_launch_counts()
+    got = decode_flat.decode_flat(*g)
+    torch.cuda.synchronize()
+    counts = walk_counts()
+    want = decode_flat.decode_flat_plain(*g)
+    bnd, by = bound_ms(nbytes)
+    row = {
+        "name": "flat_gather_rowgroup", "route": "cuda",
+        "source": "snappy_tpu_torch/csrc/flat_gather.cu stpu_cuda_flat_gather_groups",
+        "replaces": "snappy_tpu/ops/pallas/decode.py:1334 decode_flat_pallas_v2",
+        "shape": list(g[0].shape) + [g[4]], "equal": torch.equal(got, want),
+        "max_abs_err": max_abs_err(got, want), "counts": counts,
+        "ms": device_ms(lambda: decode_flat.decode_flat(*g), 10), "out_bytes": out_bytes,
+        "bound_ms": bnd, "bound_by": by, "library_ms": None,
+    }
+    row["GBps"] = out_bytes / (row["ms"] * 1e6)
     return row
 
 
@@ -1408,7 +1504,9 @@ def main() -> int:
         srcs, glens, gd, d_pad = group_inputs(g)
         check(layout == (1 if d_pad % 16384 == 0 else 0), f"group d_pad {d_pad}")
         idx, tmeta, a = flat_inputs(srcs, glens, gd, d_pad, layout)
+        before = walk_counts()
         got = decode_flat.decode_flat(*a, d_pad, layout)
+        walked = {k: v - before[k] for k, v in walk_counts().items()}
         want = decode_flat.decode_flat_plain(*a, d_pad, layout)
         expect = np.zeros((len(g), d_pad), np.uint8)
         plain = native.decompress_batch([write_varu64(gd[j]) + bodies[i] for j, i in enumerate(g)])
@@ -1435,7 +1533,7 @@ def main() -> int:
             "replaces": ("snappy_tpu/ops/pallas/decode.py:1334 decode_flat_pallas_v2" if layout
                          else "snappy_tpu/ops/pallas/decode.py:1395 decode_flat_pallas"),
             "shape": [len(g), srcs.shape[1], d_pad], "equal": equal,
-            "max_abs_err": max_abs_err(got, want),
+            "max_abs_err": max_abs_err(got, want), "walk": walked,
             "ms": device_ms(k2, 50), "call_ms": cuda_ms(k2, 50),
             "plain_ms": cuda_ms(lambda: decode_flat.decode_flat_plain(*a, d_pad, layout), 5),
             "bound_ms": bnd, "bound_by": by,
@@ -1482,8 +1580,21 @@ def main() -> int:
     check(min(k["ms"], k["k2_ms"]) >= k["bound_ms"],
           "K2 over five groups reads faster than its bytes' bound: no true reading")
     check(k["equal"], "K2 over several groups differs from its plain version or five launches")
-    check(k["counts"] == {"launches": 1, "crc_launches": 1, "launched_groups": 5, "crc32c": 0},
-          f"K2 over five groups: {k['counts']}")
+    units = sum(rows * -(-d_pad // 16384) for rows, _, d_pad in k["shape"])
+    c = k["counts"]
+    check(c == {"launches": 1, "crc_launches": 1, "launched_groups": 5, "crc32c": 0,
+                "launched_units": units, "launched_ctas": c["launched_ctas"]}
+          and 0 < c["launched_ctas"] <= units, f"K2 over five groups: {c}")
+
+    # -- K2 on the page cell's widest launch group (145 rows of 1 MiB) ------------------
+    k = page_group_row(dev)
+    kernels.append(k)
+    print(f"K2 on the 145-row page group: {k['ms']:.6f} ms device-only ({k['GBps']:.2f} GB/s), "
+          f"bound {k['bound_ms']:.6f}; counts {k['counts']}")
+    check(k["ms"] >= k["bound_ms"], "K2 on the page group reads faster than its bytes' bound")
+    check(k["equal"], "K2 on the page group differs from its plain version")
+    check(k["counts"]["launches"] == 1 and k["counts"]["launched_units"] == 145 * 64,
+          f"K2 on the page group: {k['counts']}")
 
     # -- K11 grouped flat gather (v3, v4) on the frame's largest group, as K2 gets it ----
     # With group_buckets' buckets it must give K2's bytes and the host codec's;
@@ -2218,7 +2329,7 @@ def main() -> int:
     print(f"ncu: {report['ncu']}")
 
     for k in kernels:
-        if k["name"] == "flat_gather_groups":  # its launches count under K2's names
+        if k["name"] in ("flat_gather_groups", "flat_gather_rowgroup"):  # counted as K2's
             continue
         k["launches_by_path"] = {path: c[k["name"]] for path, c in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())

@@ -45,13 +45,15 @@ def launch_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel wrapper's launch count to 0, and K2's count of the
-    launch groups its launches decoded (``decode_flat.launched_groups``)."""
+    """Set every kernel wrapper's launch count to 0, and K2's counts of what
+    its launches walked (``decode_flat.launched_groups``, ``launched_units``,
+    ``launched_ctas``)."""
     from . import crc32c, decode_flat, emit, encode, parse, records, replay, resolve
 
     for m in (crc32c, decode_flat, replay, parse, encode, records):
         m.launches = 0
     decode_flat.crc_launches = decode_flat.launched_groups = 0
+    decode_flat.launched_units = decode_flat.launched_ctas = 0
     decode_flat.layout_launches[:] = [0, 0]
     for d in (emit.entry_launches, resolve.launches, decode_flat.grouped_launches):
         for k in d:

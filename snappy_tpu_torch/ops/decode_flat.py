@@ -33,8 +33,11 @@ rows take K2 and then K1.
 
 :func:`decode_flat_groups` decodes several launch groups, each of its own
 rows and widths, in one launch of the same kernel a layout and checksum
-kind: a CTA finds its group from a table in the launch's parameters, so
-groups that are each under one wave of the card fill it together.
+kind: a unit finds its group from a table in the launch's parameters, so
+groups that are each under one wave of the card fill it together. The
+kernel is persistent: its grid is the smaller of the launch's units and the
+CTAs the card holds at once, and each CTA walks its units with the next
+ones' indices already loading.
 """
 
 from __future__ import annotations
@@ -53,13 +56,17 @@ from .crc32c import (
 
 #: Kernel launches since the count was last reset: K2 in all and per
 #: layout (its checksum instance included), K2 with the checksum
-#: (``crc_launches``), K11 per variant; and the launch groups that K2's
-#: launches decoded (``launched_groups``).
+#: (``crc_launches``), K11 per variant; and what K2's launches walked: the
+#: launch groups they decoded (``launched_groups``), their 16 KiB units of
+#: output (``launched_units``) and the CTAs that walked them
+#: (``launched_ctas``, each launch's grid).
 launches = 0
 layout_launches = [0, 0]
 crc_launches = 0
 grouped_launches = {3: 0, 4: 0}
 launched_groups = 0
+launched_units = 0
+launched_ctas = 0
 
 GROUP = 16384  # output bytes per bucket group (16 tiles of 1024)
 NOMINAL_WINDOWS = (128, 256, 512)  # window rows of buckets 0, 1, 2
@@ -139,7 +146,9 @@ def decode_flat(srcs, idx, tile_meta, declens, d_pad: int, layout: int):
 
     ``idx``: ``(B, d_pad)`` int16; ``tile_meta``: ``(B, d_pad // 1024, 2)``
     int32; ``declens``: ``(B,)`` int32. A CUDA input launches the kernel
-    (or raises); a CPU input runs :func:`decode_flat_plain`.
+    (or raises; a stream's first launch makes the stream's walk counter, so
+    it must come before any CUDA graph capture on that stream); a CPU input
+    runs :func:`decode_flat_plain`.
     """
     return decode_flat_groups([(srcs, idx, tile_meta, declens, d_pad, layout)])[0][0]
 
@@ -204,6 +213,15 @@ def decode_flat_crc(srcs, idx, tile_meta, declens, d_pad: int, layout: int):
     return decode_flat_groups([(srcs, idx, tile_meta, declens, d_pad, layout)], True)[0]
 
 
+def _walk_counter(device) -> torch.Tensor:
+    """The two words with which K2's launches on card ``device``'s current
+    stream hand out units to their CTAs: zeroed once, made by the first
+    launch on the stream (not inside a CUDA graph capture), left zeroed by
+    every launch."""
+    return _build.stream_state(device, "flat_gather_walk",
+                               lambda: torch.zeros(2, dtype=torch.int32, device=device))
+
+
 class _FlatGroup(ctypes.Structure):
     """One launch group of a ``stpu_cuda_flat_gather_groups`` launch
     (``csrc/flat_gather.cu`` ``FlatGroup``): its tensors' addresses, ``crc``
@@ -218,7 +236,8 @@ class _FlatGroup(ctypes.Structure):
 def _groups_kernel():
     fn = _build.kernel_lib("flat_gather").stpu_cuda_flat_gather_groups
     p = ctypes.c_void_p
-    fn.argtypes = [ctypes.POINTER(_FlatGroup), ctypes.c_int, ctypes.c_int, p, p, p]
+    fn.argtypes = [ctypes.POINTER(_FlatGroup), ctypes.c_int, ctypes.c_int, p, p, p,
+                   ctypes.POINTER(ctypes.c_int64), p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -250,8 +269,9 @@ def decode_flat_groups(groups, with_crc: bool = False):
     ``with_crc``; K2 alone, then K1 on each group, for wider ones), up to
     :data:`MAX_LAUNCH_GROUPS` groups and, with the checksum, a stream's
     :data:`STATE_WORDS` rows a launch. Each launch counts
-    in :data:`launches` (and ``layout_launches``, ``crc_launches``) and its
-    groups in :data:`launched_groups`. CPU inputs run
+    in :data:`launches` (and ``layout_launches``, ``crc_launches``), its
+    groups in :data:`launched_groups`, its units in :data:`launched_units`
+    and its grid in :data:`launched_ctas`. CPU inputs run
     :func:`decode_flat_plain` on each group (and ``crc32c_plain``)."""
     for srcs, idx, tile_meta, declens, d_pad, layout in groups:
         _flat_checks(srcs, idx, tile_meta, declens, d_pad, layout)
@@ -274,6 +294,7 @@ def decode_flat_groups(groups, with_crc: bool = False):
         if b and d_pad:
             kinds.setdefault((layout, fused), []).append(i)
     rows = [g[0].shape[0] for g in groups]
+    counter = _walk_counter(dev) if kinds else None
     for (layout, fused), members in kinds.items():
         tabs, state = _crc_scratch(dev) if fused else (None, None)
         for part in _launch_sets(members, rows, fused):
@@ -290,9 +311,12 @@ def decode_flat_groups(groups, with_crc: bool = False):
             if fused:
                 _build.count(globals(), "crc_launches")
             _build.count(globals(), "launched_groups", len(part))
+            walked = (ctypes.c_int64 * 2)()
             _build.launch(dev, "flat_gather_groups", _groups_kernel(), table, len(part), layout,
                           tabs.data_ptr() if fused else None,
-                          state.data_ptr() if fused else None)
+                          state.data_ptr() if fused else None, counter.data_ptr(), walked)
+            _build.count(globals(), "launched_units", walked[0])
+            _build.count(globals(), "launched_ctas", walked[1])
     if with_crc:
         results = [(out, crc32c_masked_blocks(out, g[3]) if crc is None else crc)
                    for (out, crc), g in zip(results, groups)]

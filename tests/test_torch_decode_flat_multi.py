@@ -23,7 +23,7 @@ from snappy_tpu.format.varint import write_varu64
 from snappy_tpu.ops import api as japi
 from snappy_tpu_torch import native
 from snappy_tpu_torch.config import configure
-from snappy_tpu_torch.ops import api, decode_flat, packing
+from snappy_tpu_torch.ops import api, decode_flat, packing, reset_launch_counts
 from torch_vectors import (
     CORRUPT, fallback_row, flat_crc_rows, hold_jax_native, raw_body, share_cores_with_workers,
     wide_stream,
@@ -87,7 +87,8 @@ def test_groups_give_the_reference_bytes_and_crcs():
 
 def test_groups_check_each_group_and_launch_nothing_on_the_cpu():
     """Each group's arguments are checked as ``decode_flat`` checks them;
-    no group is no launch; the CPU counts no launch and no group."""
+    no group is no launch; the CPU counts no launch, no group, no unit
+    walked and no CTA; ``reset_launch_counts`` zeroes the walk's counts."""
     groups = mixed_groups()
     assert decode_flat.decode_flat_groups([]) == []
     bad = (*groups[2][:4], groups[2][4] + 1024, 1)
@@ -96,9 +97,16 @@ def test_groups_check_each_group_and_launch_nothing_on_the_cpu():
     with pytest.raises(TypeError):
         decode_flat.decode_flat_groups([groups[0], (groups[1][0], groups[1][1].to(torch.int32),
                                                     *groups[1][2:])])
-    before = (decode_flat.launches, decode_flat.crc_launches, decode_flat.launched_groups)
+    def counts():
+        return (decode_flat.launches, decode_flat.crc_launches, decode_flat.launched_groups,
+                decode_flat.launched_units, decode_flat.launched_ctas)
+
+    before = counts()
     decode_flat.decode_flat_groups(groups, True)
-    assert (decode_flat.launches, decode_flat.crc_launches, decode_flat.launched_groups) == before
+    assert counts() == before
+    decode_flat.launched_units, decode_flat.launched_ctas = 7, 3
+    reset_launch_counts()
+    assert counts() == (0, 0, 0, 0, 0)
 
 
 @pytest.mark.parametrize("rows,crc,want", [

@@ -293,7 +293,20 @@ def _frame_groups(dev, layout):
 
 def _counts():
     return (decode_flat.launches, decode_flat.layout_launches[:], decode_flat.crc_launches,
-            decode_flat.launched_groups, crc32c.launches)
+            decode_flat.launched_groups, crc32c.launches, decode_flat.launched_units,
+            decode_flat.launched_ctas)
+
+
+def _units(groups) -> int:
+    """The 16 KiB units of output of ``groups``, as K2's walk numbers them."""
+    return sum(g[0].shape[0] * -(-g[4] // decode_flat.GROUP) for g in groups)
+
+
+def _check_grid(dev, units: int, ctas: int) -> None:
+    """A launch's grid: all its units when they fit on the card at once,
+    else a whole number of CTAs on each SM."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert 0 < ctas <= units and (ctas == units or ctas % sms == 0), (units, ctas)
 
 
 @pytest.mark.parametrize("with_crc", [False, True], ids=["k2", "k2_crc"])
@@ -311,6 +324,10 @@ def test_flat_groups_kernel_matches_plain(dev, layout, with_crc):
     assert after[0] == before[0] + 1 and after[2] == before[2] + with_crc
     assert after[1][layout] == before[1][layout] + 1 and after[3] == before[3] + 5
     assert after[4] == before[4]
+    units, ctas = after[5] - before[5], after[6] - before[6]
+    assert units == _units(groups) == 1042
+    _check_grid(dev, units, ctas)
+    assert ctas < units  # the frame read's 1,042 units are more than the card holds at once
     for (out, crc), g in zip(got, groups):
         want = decode_flat.decode_flat_plain(*g)
         assert torch.equal(out, want)
@@ -372,6 +389,86 @@ def test_one_group_c_entries_are_the_groups_kernel(dev, layout):
         want = decode_flat.decode_flat_plain(*g)
         assert torch.equal(out, want) and torch.equal(out_c, want)
         assert torch.equal(crc, crc32c.crc32c_plain(want, dl, masked=True))
+
+
+def _walk_groups(dev, layout):
+    """Sixteen launch groups of mixed widths in ``layout``, 5,000 units and
+    more (past the card's resident grid): each group ``flat_crc_rows`` at
+    one of the layout's ``d_pad``s (declens 0, 1, 15, 16, 16,383, 16,384,
+    16,385 and ``d_pad``: rows of declen 0, units wholly past declen) with
+    its noise drawn from the group's own seed, its rows repeated."""
+    pads = [p for lay, p in FLAT_CRC_SHAPES if lay == layout]
+    groups = []
+    for k in range(16):
+        d_pad = pads[k % len(pads)]
+        srcs, idx, tmeta, dl = _flatten(flat_crc_rows(d_pad, seed=100 + k), d_pad, layout, None)
+        reps = (8 + k) * (2 - layout)
+        groups.append((*(torch.from_numpy(np.concatenate([x] * reps)).to(dev)
+                         for x in (srcs, idx.view(np.int16), tmeta, dl)), d_pad, layout))
+    assert _units(groups) > 5000
+    return groups
+
+
+def _check_walk(groups, got, with_crc):
+    for (out, crc), g in zip(got, groups):
+        want = decode_flat.decode_flat_plain(*g)
+        assert torch.equal(out, want)
+        if with_crc:
+            assert torch.equal(crc, crc32c.crc32c_plain(want, g[3], masked=True))
+
+
+@pytest.mark.parametrize("with_crc", [False, True], ids=["k2", "k2_crc"])
+@pytest.mark.parametrize("layout", [0, 1])
+def test_flat_walk_over_more_units_than_the_grid(dev, layout, with_crc):
+    """Sixteen groups of mixed widths, over 5,000 units, in one launch: each
+    CTA walks many units; every group's bytes and CRCs as the plain versions
+    give them, rows of declen 0 and units past declen included. With the
+    checksum, some row's units fall to several CTAs and to two steps of the
+    walk. Two launches back to back on one stream give the same bytes
+    and CRCs (each leaves the rows' state zeroed)."""
+    groups = _walk_groups(dev, layout)
+    before = _counts()
+    first = decode_flat.decode_flat_groups(groups, with_crc)
+    second = decode_flat.decode_flat_groups(groups, with_crc)
+    torch.cuda.synchronize()
+    after = _counts()
+    assert after[0] == before[0] + 2 and after[3] == before[3] + 32
+    units, ctas = (after[5] - before[5]) // 2, (after[6] - before[6]) // 2
+    assert units == _units(groups)
+    _check_grid(dev, units, ctas)
+    assert units > 4 * ctas
+    _check_walk(groups, first, with_crc)
+    _check_walk(groups, second, with_crc)
+    if with_crc:
+        # In the grid's first rounds unit v is CTA v % ctas's, at step
+        # v // ctas, and past them each unit is claimed on its own; a row's
+        # units are consecutive, so one across a multiple of ctas falls to
+        # several CTAs and steps.
+        v, split = 0, False
+        for g in groups:
+            per_row = -(-g[4] // decode_flat.GROUP)
+            for _ in range(g[0].shape[0]):
+                split |= v // ctas != (v + per_row - 1) // ctas
+                v += per_row
+        assert split
+
+
+@pytest.mark.parametrize("with_crc", [False, True], ids=["k2", "k2_crc"])
+@pytest.mark.parametrize("layout,d_pad", [(0, 1024), (1, 16384)])
+@pytest.mark.parametrize("declen", [0, 700], ids=["empty", "live"])
+def test_flat_walk_of_one_unit(dev, layout, d_pad, with_crc, declen):
+    """A launch of one unit (a raw decode of one short row, or of a row of
+    declen 0) runs one CTA and gives the plain bytes and CRC."""
+    rows = [raw_body(load_corpus("html")[:declen])]
+    srcs, idx, tmeta, dl = _flatten(rows, d_pad, layout, None)
+    g = (*(torch.from_numpy(x).to(dev) for x in (srcs, idx.view(np.int16), tmeta, dl)), d_pad,
+         layout)
+    before = _counts()
+    got = decode_flat.decode_flat_groups([g], with_crc)
+    torch.cuda.synchronize()
+    after = _counts()
+    assert (after[5] - before[5], after[6] - before[6]) == (1, 1)
+    _check_walk([g], got, with_crc)
 
 
 def test_frame_read_of_16_mib_is_one_checksum_launch(dev):
